@@ -1,0 +1,49 @@
+"""Architecture registry of the port: ``--arch <id>`` resolves here.
+
+Only the architectures whose layers the port has are registered; the
+others raise ``KeyError`` until their slice lands.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeCell, applicable_shapes
+
+ARCH_IDS = ["qwen3_8b"]
+
+_ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
+
+
+def _module(arch: str):
+    arch = _ALIASES.get(arch, arch)
+    if arch not in ARCH_IDS:
+        raise KeyError(f"unknown or not yet ported arch {arch!r}; available: {sorted(ARCH_IDS + list(_ALIASES))}")
+    return importlib.import_module(f"repro_torch.configs.{arch}")
+
+
+def get_config(arch: str) -> ArchConfig:
+    return _module(arch).config()
+
+
+def get_reduced(arch: str) -> ArchConfig:
+    return _module(arch).reduced()
+
+
+def make_model(cfg: ArchConfig):
+    """Instantiate the model for a config (the LM refuses unported families)."""
+    from repro_torch.models.lm import LM
+
+    return LM(cfg)
+
+
+__all__ = [
+    "ARCH_IDS",
+    "ArchConfig",
+    "SHAPES",
+    "ShapeCell",
+    "applicable_shapes",
+    "get_config",
+    "get_reduced",
+    "make_model",
+]

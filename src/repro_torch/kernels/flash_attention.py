@@ -1,0 +1,53 @@
+"""Flash attention forward on Hopper — the launcher of
+``csrc/flash_attention.cu``, the port of ``repro/kernels/flash_attention.py``.
+
+Causal (right-aligned when T > S), sliding-window and softcapped attention
+with GQA.  One block per (b, h, 32-row query tile) walks the key tiles its
+rows can see, with the online softmax state in fp32 registers; fully
+masked key tiles are skipped and ragged S/T edges are masked in the kernel.
+Forward only.
+
+The plain version is ``ref.attention_ref``; ``ops`` chooses.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,  # (B, KV, T, D)
+    v: torch.Tensor,
+    causal: bool = True,
+    window: int = 0,
+    logit_softcap: float = 0.0,
+) -> torch.Tensor:
+    """Launch the kernel on PyTorch's current stream; no synchronisation."""
+    from repro_torch.kernels.ops import check, load
+
+    b, h, s, d = q.shape
+    _, kv, t, _ = k.shape
+    tensors = (q, k, v)
+    if not all(x.is_cuda and x.device == q.device for x in tensors):
+        raise ValueError("flash kernel: every operand must be on one CUDA device")
+    if not all(x.dtype == q.dtype for x in tensors) or q.dtype not in _DTYPES:
+        raise TypeError(f"flash kernel takes float32 or bfloat16 operands of one dtype, got {[x.dtype for x in tensors]}")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("flash kernel takes contiguous operands")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash kernel built for D in {HEAD_DIMS}, got {d}")
+    if kv == 0 or h % kv or k.shape[0] != b or k.shape[3] != d or v.shape != k.shape or s == 0:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    out = torch.empty_like(q)
+    lib = load("flash_attention")
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kv, s, t, d,
+        int(bool(causal)), int(window), float(logit_softcap), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check(err, "flash_attention")
+    return out

@@ -1,0 +1,146 @@
+"""Decoder-only LM of the port — ``repro/models/lm.py`` for the dense GQA
+family (qwen3-8b).  MoE, MLA, the recurrent mixers, VLM patches and the MTP
+head wait for their slices and are refused at construction.
+
+The stack is always unrolled (``prefix_0 .. prefix_{L-1}``): PyTorch runs
+eagerly and has no ``lax.scan``, and the two-level cache is host state that
+could not ride a scan carry anyway.  ``nn.module.params_from_jax`` unrolls a
+scanned JAX tree into the same keys.
+
+Three entry points (pure functions of params and caches):
+
+    train_logits(params, tokens)        -> (logits, aux)
+    prefill(params, tokens, caches)     -> (logits, new_caches)
+    decode_step(params, token, caches)  -> (logits, new_caches)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.nn import layers as L
+from repro_torch.nn.module import Scope
+
+Params = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    mixer: str  # 'gqa' | 'mla' | 'rglru' | 'mlstm' | 'slstm'
+    window: int = 0  # sliding window for gqa (0 = full)
+    ffn: str = "mlp"  # 'mlp' | 'moe' | 'none'
+
+
+def layer_specs(cfg: ArchConfig) -> list[LayerSpec]:
+    """Expand a dense GQA config into its per-layer specs (the recurrent,
+    MLA and MoE branches of the JAX version come with their slices)."""
+    specs: list[LayerSpec] = []
+    for i in range(cfg.n_layers):
+        window = cfg.window
+        if cfg.global_every > 0 and i % cfg.global_every == cfg.global_every - 1:
+            window = 0  # periodic global layer (gemma3 5:1)
+        specs.append(LayerSpec("gqa", window=window))
+    return specs
+
+
+def stack_plan(cfg: ArchConfig) -> tuple[list[LayerSpec], list[LayerSpec], int, list[LayerSpec]]:
+    """(prefix, period, n_periods, suffix): always the unrolled plan."""
+    return layer_specs(cfg), [], 0, []
+
+
+def init_layer(scope: Scope, spec: LayerSpec, cfg: ArchConfig) -> None:
+    L.norm_init(scope, "pre_norm", cfg.d_model, cfg)
+    L.attention_init(scope, "mixer", cfg)
+    if cfg.post_norms:
+        L.norm_init(scope, "post_mixer_norm", cfg.d_model, cfg)
+    L.norm_init(scope, "pre_ffn_norm", cfg.d_model, cfg)
+    L.mlp_init(scope, "ffn", cfg)
+    if cfg.post_norms:
+        L.norm_init(scope, "post_ffn_norm", cfg.d_model, cfg)
+
+
+def make_layer_cache(spec: LayerSpec, cfg: ArchConfig, batch: int, max_seq: int, dtype, device="cuda") -> dict:
+    # Sliding-window layers only ever need `window` keys; cap the page.
+    size = min(max_seq, spec.window) if spec.window > 0 else max_seq
+    return L.make_cache(cfg, batch, size, dtype, device)
+
+
+def apply_layer(p: Params, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig,
+                cache: Any = None, mode: str = "train") -> tuple[torch.Tensor, Any]:
+    """Residual layer body. Returns (x, new_cache)."""
+    h = L.norm_apply(p["pre_norm"], x, cfg)
+    mix, new_cache = L.attention_apply(p["mixer"], h, cfg, window=spec.window, cache=cache, mode=mode)
+    if cfg.post_norms:
+        mix = L.norm_apply(p["post_mixer_norm"], mix, cfg)
+    x = x + mix
+    h2 = L.norm_apply(p["pre_ffn_norm"], x, cfg)
+    f = L.mlp_apply(p["ffn"], h2, cfg)
+    if cfg.post_norms:
+        f = L.norm_apply(p["post_ffn_norm"], f, cfg)
+    return x + f, new_cache
+
+
+class LM:
+    def __init__(self, cfg: ArchConfig):
+        missing = [name for name, on in (
+            ("moe", cfg.moe is not None), ("mla", cfg.attn_type != "gqa"),
+            ("recurrent", cfg.recurrent is not None), ("vlm", cfg.vlm is not None),
+            ("encdec", cfg.encdec is not None), ("mtp", cfg.mtp),
+        ) if on]
+        if missing:
+            raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported yet")
+        self.cfg = cfg
+        self.prefix, self.period, self.n_periods, self.suffix = stack_plan(cfg)
+
+    def init(self, scope: Scope) -> None:
+        cfg = self.cfg
+        L.embedding_init(scope, "embed", cfg.vocab, cfg.d_model)
+        if not cfg.tie_embeddings:
+            scope.child("head").param("w", (cfg.d_model, cfg.vocab), ("embed", "vocab"), init="fan_in")
+        for i, spec in enumerate(self.prefix):
+            init_layer(scope.child(f"prefix_{i}"), spec, cfg)
+        L.norm_init(scope, "final_norm", cfg.d_model, cfg)
+
+    def init_caches(self, batch: int, max_seq: int, dtype=torch.bfloat16, device="cuda") -> dict:
+        return {
+            f"prefix_{i}": make_layer_cache(spec, self.cfg, batch, max_seq, dtype, device)
+            for i, spec in enumerate(self.prefix)
+        }
+
+    def _run_stack(self, params: Params, x: torch.Tensor, caches: dict | None, mode: str):
+        new_caches: dict[str, Any] = {}
+        for i, spec in enumerate(self.prefix):
+            key = f"prefix_{i}"
+            x, nc = apply_layer(params[key], x, spec, self.cfg, caches.get(key) if caches else None, mode)
+            if caches is not None:
+                new_caches[key] = nc
+        return x, (new_caches if caches is not None else None)
+
+    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        x = L.norm_apply(params["final_norm"], x, self.cfg)
+        return L.logits_apply(params["embed"], params.get("head"), x, self.cfg)
+
+    @torch.no_grad()
+    def train_logits(self, params: Params, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence causal logits. Returns (logits fp32, aux_loss)."""
+        x = L.embedding_apply(params["embed"], tokens, self.cfg)
+        x, _ = self._run_stack(params, x, None, "train")
+        return self._logits(params, x), torch.zeros((), device=x.device)
+
+    @torch.no_grad()
+    def prefill(self, params: Params, tokens: torch.Tensor, caches: dict) -> tuple[torch.Tensor, dict]:
+        """Process the prompt; fill caches; return last-position logits."""
+        x = L.embedding_apply(params["embed"], tokens, self.cfg)
+        x, new_caches = self._run_stack(params, x, caches, "prefill")
+        return self._logits(params, x[:, -1:, :]), new_caches
+
+    @torch.no_grad()
+    def decode_step(self, params: Params, token: torch.Tensor, caches: dict) -> tuple[torch.Tensor, dict]:
+        """One autoregressive step against pre-allocated caches."""
+        x = L.embedding_apply(params["embed"], token, self.cfg)
+        x, new_caches = self._run_stack(params, x, caches, "decode")
+        return self._logits(params, x), new_caches

@@ -1,0 +1,172 @@
+"""Parameter scopes with logical axes — the port of ``repro/nn/module.py``.
+
+A ``Scope`` threads a ``torch.Generator`` through ``init`` functions and
+records, for every parameter, a tuple of logical axis names.  One init
+pass yields two parallel trees — params (tensors) and axes (tuples) —
+under the same key paths as the JAX package (``prefix_0/mixer/wq`` with
+the einsum layout ``(d, H, hd)``), so a JAX parameter tree converts leaf
+for leaf (``params_from_jax``).
+
+The numbers differ from JAX's by construction (``jax.random`` and
+``torch.Generator`` are different generators); the schemes are the same:
+``normal`` (std 0.02 unless scaled), ``fan_in`` (std scale/sqrt(shape[0])),
+``zeros``, ``ones``.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+PyTree = Any
+
+
+class Scope:
+    """Threads a generator + path through init; collects params and axes."""
+
+    def __init__(self, generator: torch.Generator, device, dtype=torch.float32,
+                 path: str = "", store: dict | None = None, axes: dict | None = None):
+        self._gen = generator
+        self._device = torch.device(device)
+        self._dtype = dtype
+        self._path = path
+        self.params: dict = store if store is not None else {}
+        self.axes: dict = axes if axes is not None else {}
+
+    def child(self, name: str) -> "Scope":
+        self.params.setdefault(name, {})
+        self.axes.setdefault(name, {})
+        return Scope(self._gen, self._device, self._dtype, f"{self._path}/{name}",
+                     self.params[name], self.axes[name])
+
+    def param(
+        self,
+        name: str,
+        shape: tuple[int, ...],
+        axes: tuple[str | None, ...],
+        init: str = "normal",
+        scale: float | None = None,
+    ) -> torch.Tensor:
+        if len(shape) != len(axes):
+            raise ValueError(f"{self._path}/{name}: shape {shape} vs axes {axes} length mismatch")
+        if name in self.params:
+            raise ValueError(f"duplicate param {self._path}/{name}")
+        kw = dict(device=self._device, dtype=self._dtype)
+        if init == "normal":
+            s = scale if scale is not None else 0.02
+            val = torch.randn(shape, generator=self._gen, **kw) * s
+        elif init == "fan_in":
+            fan_in = shape[0] if len(shape) >= 1 else 1
+            s = scale if scale is not None else 1.0
+            val = torch.randn(shape, generator=self._gen, **kw) * (s / math.sqrt(max(fan_in, 1)))
+        elif init == "zeros":
+            val = torch.zeros(shape, **kw)
+        elif init == "ones":
+            val = torch.ones(shape, **kw)
+        else:
+            raise ValueError(f"unknown init {init!r}")
+        self.params[name] = val
+        self.axes[name] = tuple(axes)
+        return val
+
+
+def init_with_axes(
+    init_fn: Callable[[Scope], None],
+    seed: int,
+    device="cuda",
+    dtype=torch.float32,
+) -> tuple[PyTree, PyTree]:
+    """Run ``init_fn`` under a fresh Scope on ``device``; return (params, axes)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    scope = Scope(gen, device, dtype)
+    with torch.no_grad():
+        init_fn(scope)
+    return scope.params, scope.axes
+
+
+def cast_matrices(params: PyTree, dtype, keep: tuple[str, ...] = ("head",)) -> PyTree:
+    """Cast every parameter of rank >= 2 to ``dtype``, except the subtrees
+    named in ``keep``; vectors (norm scales, biases) stay as they are.
+
+    The JAX layers cast each matrix with ``.astype(compute dtype)`` at every
+    call (``linear_apply``, the attention einsums, ``embedding_apply``), so
+    one cast up front gives exactly the values they use and halves the
+    weights' memory.  Vectors are read in fp32 by the norms, and the LM head
+    is read in fp32 by ``logits_apply``: both keep their master dtype.
+    """
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out[k] = v if k in keep else cast_matrices(v, dtype, keep)
+        else:
+            out[k] = v.to(dtype) if v.ndim >= 2 and v.is_floating_point() else v
+    return out
+
+
+_LAYER = re.compile(r"^(prefix|suffix)_(\d+)$")
+_SLOT = re.compile(r"^slot_(\d+)$")
+
+
+def params_from_jax(tree: PyTree, device="cuda", dtype=None) -> PyTree:
+    """Convert a JAX parameter tree (numpy-convertible leaves) to tensors.
+
+    Key paths are kept (``prefix_0/mixer/wq`` stays ``(d, H, hd)``).  The
+    port's stack is always unrolled, so a scanned JAX tree — ``prefix_i``,
+    then ``periods/slot_j`` with a leading period axis, then ``suffix_i``
+    (``stack_plan``) — is renumbered into consecutive ``prefix_i`` layers;
+    both ``scan_layers`` settings therefore load into the same model.
+    ``dtype`` (optional) casts every floating leaf.
+    """
+
+    def leaf(x) -> torch.Tensor:
+        t = torch.from_numpy(np.array(x))  # np.array copies: the tensor owns its bytes
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device)
+
+    def conv(node):
+        return {k: conv(v) for k, v in node.items()} if isinstance(node, dict) else leaf(node)
+
+    layers: dict[int, PyTree] = {}
+    suffix: dict[int, PyTree] = {}
+    out: dict = {}
+    for k, v in tree.items():
+        m = _LAYER.match(k)
+        if m and m.group(1) == "prefix":
+            layers[int(m.group(2))] = conv(v)
+        elif m:
+            suffix[int(m.group(2))] = conv(v)
+        elif k != "periods":
+            out[k] = conv(v)
+    n = len(layers)
+    if "periods" in tree:
+        slots = sorted(int(_SLOT.match(s).group(1)) for s in tree["periods"])
+        first = next(iter(tree["periods"].values()))
+        n_periods = _leading_dim(first)
+        for p in range(n_periods):
+            for j in slots:
+                layers[n] = conv(_index_leading(tree["periods"][f"slot_{j}"], p))
+                n += 1
+    for i in sorted(suffix):
+        layers[n] = suffix[i]
+        n += 1
+    for i in range(n):
+        out[f"prefix_{i}"] = layers[i]
+    return out
+
+
+def _leading_dim(node) -> int:
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return int(np.shape(node)[0])
+
+
+def _index_leading(node, i: int):
+    if isinstance(node, dict):
+        return {k: _index_leading(v, i) for k, v in node.items()}
+    return np.asarray(node)[i]

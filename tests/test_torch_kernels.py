@@ -1,0 +1,175 @@
+"""The port's attention kernels (repro_torch.kernels) against the JAX package.
+
+On the CPU the port's ops run their plain PyTorch versions; these are held
+against the JAX oracles (``repro.kernels.ref``) and against the JAX Pallas
+kernels run in interpret mode, as ``tests/test_kernels.py`` runs them.
+Inputs come from a numpy seed and go to both frameworks.  Tolerances are
+those of ``tests/test_kernels.py``: fp32 rtol = atol = 2e-5, bf16 2e-2.
+The CUDA kernels themselves are tested on a GPU by ``test_torch_cuda.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attention as jax_flash
+from repro.kernels import ref as jref
+from repro.kernels import tiered_decode_attention as jax_tiered
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def pair(rng, shape, dtype="float32", scale=1.0):
+    """The same numbers as a JAX array and a torch tensor (bf16 rounds alike)."""
+    x = (rng.normal(size=shape) * scale).astype(np.float32)
+    return jnp.asarray(x, getattr(jnp, dtype)), torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+def assert_close(got_t, want_j, dtype):
+    np.testing.assert_allclose(got_t.float().numpy(), np.asarray(want_j, np.float32), **TOL[dtype])
+
+
+# name: (b, h, kv, s, t, d, causal, window, softcap, dtype)
+FLASH_CASES = {
+    "causal_f32": (1, 4, 4, 64, 64, 32, True, 0, 0.0, "float32"),
+    "causal_gqa_bf16": (2, 8, 2, 64, 64, 32, True, 0, 0.0, "bfloat16"),
+    "mqa_d64": (1, 4, 1, 48, 48, 64, True, 0, 0.0, "float32"),
+    "window_16": (1, 4, 2, 96, 96, 32, True, 16, 0.0, "float32"),
+    "window_300": (1, 4, 2, 96, 96, 32, True, 300, 0.0, "float32"),
+    "softcap_30": (1, 2, 2, 64, 64, 32, True, 0, 30.0, "float32"),
+    "ragged_50": (1, 2, 2, 50, 50, 32, True, 0, 0.0, "float32"),
+    "noncausal": (1, 2, 2, 64, 64, 32, False, 0, 0.0, "float32"),
+    "t_gt_s": (1, 4, 2, 24, 64, 32, True, 0, 0.0, "float32"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_attention_plain_matches_jax_ref(case):
+    b, h, kv, s, t, d, causal, window, cap, dtype = FLASH_CASES[case]
+    rng = np.random.default_rng(0)
+    scale = 3.0 if cap else 1.0
+    (qj, qt), (kj, kt), (vj, vt) = (pair(rng, sh, dtype, sc) for sh, sc in (
+        ((b, h, s, d), scale), ((b, kv, t, d), scale), ((b, kv, t, d), 1.0)))
+    got = ops.flash_attention(qt, kt, vt, causal=causal, window=window, logit_softcap=cap)
+    want = jref.attention_ref(qj, kj, vj, causal=causal, window=window, logit_softcap=cap)
+    assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("case", ["causal_f32", "causal_gqa_bf16", "window_16", "softcap_30", "ragged_50", "noncausal"])
+def test_attention_plain_matches_jax_flash_kernel(case):
+    """Against the Pallas flash kernel in interpret mode (block 32)."""
+    b, h, kv, s, t, d, causal, window, cap, dtype = FLASH_CASES[case]
+    rng = np.random.default_rng(1)
+    scale = 3.0 if cap else 1.0
+    (qj, qt), (kj, kt), (vj, vt) = (pair(rng, sh, dtype, sc) for sh, sc in (
+        ((b, h, s, d), scale), ((b, kv, t, d), scale), ((b, kv, t, d), 1.0)))
+    got = ops.flash_attention(qt, kt, vt, causal=causal, window=window, logit_softcap=cap)
+    want = jax_flash(qj, kj, vj, causal=causal, window=window, logit_softcap=cap,
+                     block_q=32, block_k=32, interpret=True)
+    assert_close(got, want, dtype)
+
+
+def test_attention_fully_masked_rows_give_zero():
+    """Causal with T < S leaves the first S - T rows without a key.  The port
+    gives 0 there (the l == 0 guard of both kernels).  The Pallas kernel
+    reaches that guard only when all of a row's key tiles are skipped; inside
+    a computed tile a fully masked row softmaxes -1e30 scores uniformly and
+    gives the mean of v.  This pins that difference (ROADMAP queue C); rows
+    with a key agree."""
+    rng = np.random.default_rng(2)
+    (qj, qt), (kj, kt), (vj, vt) = (pair(rng, sh) for sh in ((1, 2, 40, 32), (1, 2, 24, 32), (1, 2, 24, 32)))
+    got = ops.flash_attention(qt, kt, vt, causal=True)
+    want = np.asarray(jax_flash(qj, kj, vj, causal=True, block_q=32, block_k=32, interpret=True))
+    np.testing.assert_allclose(got[:, :, 16:].numpy(), want[:, :, 16:], **TOL["float32"])
+    assert not got[:, :, :16].any()
+    np.testing.assert_allclose(want[:, :, :16], np.broadcast_to(np.asarray(vj).mean(axis=2, keepdims=True),
+                                                                 want[:, :, :16].shape), rtol=1e-5, atol=1e-5)
+
+
+# (hot_len, cold_len, newest): hot 16 slots, cold capacity 64
+TIERED_CASES = {
+    "both_tiers": (16, 40, 15),
+    "hot_len=0": (0, 40, 7),
+    "cold_len=0": (12, 0, 11),
+    "ring_wrap": (16, 32, 5),
+    "ring_partial_wrap": (9, 48, 3),
+    "cold_full_capacity": (16, 64, 0),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(TIERED_CASES))
+def test_tiered_plain_matches_jax(case, dtype):
+    """Plain tiered decode vs the JAX ring oracle and the Pallas kernel
+    (interpret mode), ring rotation and tier edges included."""
+    hot_len, cold_len, newest = TIERED_CASES[case]
+    rng = np.random.default_rng(3)
+    (qj, qt), (hkj, hkt), (hvj, hvt), (ckj, ckt), (cvj, cvt) = (
+        pair(rng, sh, dtype) for sh in ((2, 8, 1, 32), (2, 2, 16, 32), (2, 2, 16, 32), (2, 2, 64, 32), (2, 2, 64, 32)))
+    got = ops.tiered_decode_attention(qt, hkt, hvt, ckt, cvt, hot_len, cold_len, newest)
+    want_ref = jref.tiered_ring_attention_ref(qj, hkj, hvj, ckj, cvj, hot_len, cold_len, newest)
+    want_kernel = jax_tiered(qj, hkj, hvj, ckj, cvj, hot_len=hot_len, cold_len=cold_len,
+                             ring_newest=newest, block_k=32, interpret=True)
+    assert_close(got, want_ref, dtype)
+    assert_close(got, want_kernel, dtype)
+
+
+@pytest.mark.parametrize("hot_len,cold_len", [(1, 0), (64, 0), (0, 1), (0, 384), (37, 200), (64, 384)])
+def test_tier_split_equivalence(hot_len, cold_len):
+    """Port of TestTieredDecode: the two tiers == one concatenated history
+    (chronological hot buffer: ring_newest defaults to hot_len - 1)."""
+    rng = np.random.default_rng(hot_len * 1000 + cold_len)
+    (qj, qt), (hkj, hkt), (hvj, hvt), (ckj, ckt), (cvj, cvt) = (
+        pair(rng, sh) for sh in ((1, 4, 1, 64), (1, 2, 64, 64), (1, 2, 64, 64), (1, 2, 384, 64), (1, 2, 384, 64)))
+    got = ops.tiered_decode_attention(qt, hkt, hvt, ckt, cvt, hot_len=hot_len, cold_len=cold_len)
+    kcat = jnp.concatenate([ckj[:, :, :cold_len], hkj[:, :, :hot_len]], axis=2)
+    vcat = jnp.concatenate([cvj[:, :, :cold_len], hvj[:, :, :hot_len]], axis=2)
+    want = jref.decode_attention_ref(qj, kcat, vcat, hot_len + cold_len)
+    assert_close(got, want, "float32")
+    # and the port's own decode oracle agrees with the JAX one
+    assert_close(tref.decode_attention_ref(qt, torch.from_numpy(np.array(kcat)),
+                                           torch.from_numpy(np.array(vcat)), hot_len + cold_len), want, "float32")
+
+
+def test_tiered_empty_gives_zero():
+    """No valid key in either tier: 0, like the Pallas kernel's l == 0 guard."""
+    rng = np.random.default_rng(4)
+    (qj, qt), (hkj, hkt), (hvj, hvt), (ckj, ckt), (cvj, cvt) = (
+        pair(rng, sh) for sh in ((1, 4, 1, 32), (1, 2, 8, 32), (1, 2, 8, 32), (1, 2, 32, 32), (1, 2, 32, 32)))
+    got = ops.tiered_decode_attention(qt, hkt, hvt, ckt, cvt, 0, 0, 0)
+    want = jax_tiered(qj, hkj, hvj, ckj, cvj, hot_len=0, cold_len=0, ring_newest=0, block_k=32, interpret=True)
+    assert_close(got, want, "float32")
+    assert not got.any()
+
+
+def test_cpu_ops_run_plain_versions_and_count_no_launch():
+    """On CPU tensors the ops are their plain versions, and no kernel launch
+    is counted."""
+    rng = np.random.default_rng(5)
+    ts = [pair(rng, sh)[1] for sh in ((1, 4, 8, 32), (1, 2, 8, 32), (1, 2, 8, 32))]
+    before = ops.launches()
+    torch.testing.assert_close(ops.flash_attention(*ts, window=4), tref.attention_ref(*ts, window=4), rtol=0, atol=0)
+    hot = [pair(rng, (1, 2, 8, 32))[1] for _ in range(2)]
+    cold = [pair(rng, (1, 2, 16, 32))[1] for _ in range(2)]
+    q = pair(rng, (1, 4, 1, 32))[1]
+    torch.testing.assert_close(ops.tiered_decode_attention(q, *hot, *cold, 5, 8, 2),
+                               tref.tiered_ring_attention_ref(q, *hot, *cold, 5, 8, 2), rtol=0, atol=0)
+    assert ops.launches() == before
+
+
+def test_kernel_launchers_reject_cpu_tensors():
+    """A launcher never runs a CPU tensor: it raises before building anything."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.tiered_decode import tiered_decode_attention_fwd
+
+    x = torch.zeros(1, 2, 4, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tiered_decode_attention_fwd(x[:, :, :1], x, x, x, x, 1, 1, 0)
