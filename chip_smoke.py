@@ -6,23 +6,40 @@
 Phases, each printing one JSON line (``{"phase": ...}``):
 
 1. device        the card's name, and its name and power limit from nvidia-smi
-2. build         both CUDA kernels built by nvcc for sm_90a from src/repro_torch/csrc
+2. build         the four CUDA kernels built by nvcc for sm_90a from
+                 src/repro_torch/csrc, one nvcc per source, all started together
 3. tiered_decode the decode kernel against its plain version at the serving
                  shape (B=4, H=32, KV=8, D=128, W=256, C=1024) and at the edge
                  cases, each in bf16 and again in fp32; error, kernel / plain /
                  SDPA ms and the bound
 4. flash         the flash kernel against its plain version at S=T=1024 causal,
-                 T > S, window 64, softcap 30 and ragged S=200, each in bf16
-                 and again in fp32
-5. serve         qwen3-8b at full width and depth, attn_impl="flash", through
+                 T > S, window 64, softcap 30, ragged S=200, rows with no key
+                 (T < S) and recurrentgemma's D=256 MQA window-2048 S=4096
+                 prefill, each in bf16 and again in fp32
+5. rglru         the RG-LRU scan kernel against its plain version at the serving
+                 shape (B=4, S=4096, W=4096) and at S=1, ragged S=300, W=50,
+                 each in fp32 (the model's dtype) and again in bf16
+6. mlstm         the chunkwise mLSTM kernel against its plain version, h and
+                 carry-out, at B=4, H=4, S=2048, D=384, from a carry-in, and at
+                 ragged S=300, each in fp32 and again in bf16
+7. serve         qwen3-8b at full width and depth, attn_impl="flash", through
                  ``repro_torch.launch.steps.tiered_serve_loop`` (batch 4, prompt
-                 1024, 64 new tokens, kv window 256, page 128); the kernels'
-                 launch counts are zeroed just before and read just after
-6. serve_check   2 layers at full width in fp32: greedy tokens through the
+                 1024, 64 new tokens, kv window 256, page 128), then profiled
+8. serve_check   2 qwen3 layers at full width in fp32: greedy tokens through the
                  kernels equal tokens through the plain versions
-7. kernels       one entry per kernel: launches in phase 5, max error, times, bound
+9. serve_recurrentgemma  recurrentgemma-9b, 38 layers, bf16, through
+                 ``steps.dense_serve_loop`` (batch 4, prompt 4096, 64 new tokens),
+                 then profiled
+10. serve_xlstm  xlstm-125m, 12 layers, bf16 (batch 4, prompt 2048, 64 new
+                 tokens), then profiled
+11. serve_check_recurrentgemma / serve_check_xlstm  one period at full width
+                 in fp32 (3 and 4 layers): kernel tokens equal plain tokens,
+                 and prefill logits agree within 5e-3
+12. kernels      one entry per kernel: launches in the serve phases that run
+                 it, max error, times, bound
 
-Every phase runs, at the config's full depth.  The nvidia-smi line comes
+Each serve phase zeroes the kernels' launch counts just before it serves and
+reads them just after, and asserts them.  Every phase runs, at the configs' full depth.  The nvidia-smi line comes
 first; the last line is the contract line ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it, as does a machine without CUDA or a
 directory without the repository's sources.
@@ -47,6 +64,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; fp32 outside the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # rtol = atol, as tests/test_kernels.py
+MLSTM_TOL = {"bfloat16": 2e-2, "float32": 2e-4}  # tests/test_kernels.py's mLSTM bar
 DTYPES = ("bfloat16", "float32")
 
 
@@ -69,12 +87,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def within_tol(got, want, dtype: str) -> tuple[float, bool]:
-    """(max abs error, allclose at rtol = atol = TOL[dtype]) — the tests' criterion."""
+def within_tol(got, want, dtype: str, tol: dict = TOL) -> tuple[float, bool]:
+    """(max abs error, allclose at rtol = atol = tol[dtype]) — the tests' criterion."""
     import torch
 
     diff = (got.float() - want.float()).abs()
-    ok = bool((diff <= TOL[dtype] * (1 + want.float().abs())).all()) and bool(torch.isfinite(got).all())
+    ok = bool((diff <= tol[dtype] * (1 + want.float().abs())).all()) and bool(torch.isfinite(got).all())
     return diff.max().item(), ok
 
 
@@ -164,17 +182,19 @@ def flash_phase(record: dict) -> None:
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
 
-    B, H, KV, D = 4, 32, 8, 128
-    shapes = [  # name, S, T, window, softcap; each in bf16, then in fp32
-        ("prefill_causal", 1024, 1024, 0, 0.0),
-        ("t_gt_s", 512, 1024, 0, 0.0),
-        ("window_64", 1024, 1024, 64, 0.0),
-        ("softcap_30", 1024, 1024, 0, 30.0),
-        ("ragged_200", 200, 200, 0, 0.0),
+    qwen = (4, 32, 8, 128)  # B, H, KV, D of qwen3-8b's prefill
+    shapes = [  # name, (B, H, KV, D), S, T, window, softcap; each in bf16, then in fp32
+        ("prefill_causal", qwen, 1024, 1024, 0, 0.0),
+        ("t_gt_s", qwen, 512, 1024, 0, 0.0),
+        ("window_64", qwen, 1024, 1024, 64, 0.0),
+        ("softcap_30", qwen, 1024, 1024, 0, 30.0),
+        ("ragged_200", qwen, 200, 200, 0, 0.0),
+        ("rows_without_key", (1, 2, 2, 32), 40, 24, 0, 0.0),  # rows 0-15 see no key: mean of v
+        ("recurrentgemma_d256", (4, 16, 1, 256), 4096, 4096, 2048, 0.0),  # its local-attention prefill
     ]
     cases = [(name if dt == "bfloat16" else name + "_fp32", dt, *rest) for dt in DTYPES for name, *rest in shapes]
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for name, dt_name, S, T, window, cap in cases:
+    for name, dt_name, (B, H, KV, D), S, T, window, cap in cases:
         dt = getattr(torch, dt_name)
         q = torch.randn((B, H, S, D), generator=gen, device="cuda").to(dt)
         k = torch.randn((B, KV, T, D), generator=gen, device="cuda").to(dt)
@@ -200,14 +220,114 @@ def flash_phase(record: dict) -> None:
         moved = (2 * B * H * S * D + 2 * B * KV * T * D) * isz
         flops = 4 * B * H * pairs * D
         bound_ms, bound_by = bound(moved, flops, dt_name)
-        row = dict(case=name, dtype=dt_name, S=S, T=T, window=window, softcap=cap,
+        row = dict(case=name, dtype=dt_name, B=B, H=H, KV=KV, D=D, S=S, T=T, window=window, softcap=cap,
                    max_abs_err=err, tol=TOL[dt_name], ok=ok, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         emit("flash", **row)
         if not ok:
             raise AssertionError(f"flash {name}: not within rtol=atol={TOL[dt_name]} (max abs err {err})")
         record.setdefault("flash", []).append(row)
-        del q, k, v, got, want
+        del q, k, v, got, want, mask
+
+
+# ------------------------------------------------------------------- rglru
+
+
+def rglru_phase(record: dict) -> None:
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rglru import rglru_scan_fwd
+
+    shapes = [  # name, B, S, W; each in fp32 (the model's dtype), then in bf16
+        ("serve", 4, 4096, 4096),  # recurrentgemma-9b's prefill: B 4, prompt 4096, lru_width 4096
+        ("s=1", 4, 1, 4096),
+        ("ragged_s300", 4, 300, 4096),
+        ("w=50", 4, 1000, 50),
+    ]
+    cases = [(name if dt == "float32" else name + "_bf16", dt, *rest)
+             for dt in ("float32", "bfloat16") for name, *rest in shapes]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for name, dt_name, B, S, W in cases:
+        dt = getattr(torch, dt_name)
+        a = (0.5 + 0.5 * torch.rand((B, S, W), generator=gen, device="cuda")).to(dt)
+        x = torch.randn((B, S, W), generator=gen, device="cuda").to(dt)
+        got = rglru_scan_fwd(a, x)
+        want = ref.rglru_ref(a, x)
+        torch.cuda.synchronize()
+        err, ok = within_tol(got, want, dt_name)
+        ms = time_ms(lambda: rglru_scan_fwd(a, x), iters=20)
+        plain_ms = time_ms(lambda: ref.rglru_ref(a, x), iters=3, warmup=1)
+        isz = torch.finfo(dt).bits // 8
+        bound_ms, bound_by = bound(3 * B * S * W * isz, 2 * B * S * W, dt_name)
+        row = dict(case=name, dtype=dt_name, B=B, S=S, W=W, max_abs_err=err, tol=TOL[dt_name], ok=ok,
+                   ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        emit("rglru", **row)
+        if not ok:
+            raise AssertionError(f"rglru {name}: not within rtol=atol={TOL[dt_name]} (max abs err {err})")
+        record.setdefault("rglru", []).append(row)
+        del a, x, got, want
+
+
+# ------------------------------------------------------------------- mlstm
+
+
+def mlstm_flops(B: int, H: int, S: int, D: int, chunk: int) -> int:
+    """Operations of the chunkwise algorithm at ``chunk``: per (b, h) and
+    chunk of L steps, C_prev q and the carry update (4 L D^2), the causal
+    scores and their weighted sum (2 L (L + 1) D) and the normaliser (4 L D)."""
+    total = 0
+    for c0 in range(0, S, chunk):
+        L = min(chunk, S - c0)
+        total += 4 * L * D * D + 2 * L * (L + 1) * D + 4 * L * D
+    return B * H * total
+
+
+def mlstm_phase(record: dict) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mlstm import CHUNK, mlstm_chunkwise_fwd
+
+    B, H, D = 4, 4, 384  # xlstm-125m: 4 heads of 1536 / 4
+    shapes = [  # name, S, carry-in; each in fp32 (the model's dtype), then in bf16
+        ("serve", 2048, False),  # xlstm-125m's prefill: B 4, prompt 2048, from the empty history
+        ("carry_in", 512, True),  # continues from the serve case's carry-out
+        ("ragged_s300", 300, False),
+    ]
+    cases = [(name if dt == "float32" else name + "_bf16", dt, *rest)
+             for dt in ("float32", "bfloat16") for name, *rest in shapes]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    carry = None
+    for name, dt_name, S, with_carry in cases:
+        dt = getattr(torch, dt_name)
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+        q, k, v = rnd(B, H, S, D).to(dt), (rnd(B, H, S, D) / D**0.5).to(dt), rnd(B, H, S, D).to(dt)
+        ip, fl = (0.5 * rnd(B, H, S)).to(dt), F.logsigmoid(rnd(B, H, S) + 2.0).to(dt)
+        state = carry if with_carry else None
+        got, got_carry = mlstm_chunkwise_fwd(q, k, v, ip, fl, state)
+        want, want_carry = ref.mlstm_ref(q, k, v, ip, fl, state)
+        torch.cuda.synchronize()
+        checks = [within_tol(g, w, dt_name, MLSTM_TOL) for g, w in zip((got, *got_carry), (want, *want_carry))]
+        err, ok = max(e for e, _ in checks), all(o for _, o in checks)
+        if name == "serve":
+            carry = want_carry
+        ms = time_ms(lambda: mlstm_chunkwise_fwd(q, k, v, ip, fl, state), iters=10)
+        plain_ms = time_ms(lambda: ref.mlstm_ref(q, k, v, ip, fl, state), iters=2, warmup=1)
+        isz = torch.finfo(dt).bits // 8
+        carry_bytes = B * H * (D * D + D + 1) * 4
+        moved = (4 * B * H * S * D + 2 * B * H * S) * isz + carry_bytes * (2 if with_carry else 1)
+        bound_ms, bound_by = bound(moved, mlstm_flops(B, H, S, D, CHUNK), dt_name)
+        row = dict(case=name, dtype=dt_name, B=B, H=H, S=S, D=D, chunk=CHUNK, carry_in=with_carry,
+                   max_abs_err=err, tol=MLSTM_TOL[dt_name], ok=ok, ms=ms, plain_ms=plain_ms,
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        emit("mlstm", **row)
+        if not ok:
+            raise AssertionError(f"mlstm {name}: h or carry-out not within rtol=atol={MLSTM_TOL[dt_name]} "
+                                 f"(max abs err {err})")
+        record.setdefault("mlstm", []).append(row)
+        del q, k, v, got, want, got_carry, want_carry
 
 
 # ------------------------------------------------------------------------ serve
@@ -219,13 +339,7 @@ def serve_phase(record: dict, out_dir: Path | None) -> None:
     from repro_torch.configs import get_config, make_model
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import init_params
-    from repro_torch.launch.steps import (
-        make_prefill_step,
-        make_serve_step,
-        make_tiered_caches,
-        tiered_cache_stats,
-        tiered_serve_loop,
-    )
+    from repro_torch.launch.steps import make_tiered_caches, tiered_cache_stats, tiered_serve_loop
 
     B, prompt_len, tokens, window, page = 4, 1024, 64, 256, 128
     cfg = dataclasses.replace(get_config("qwen3_8b"), attn_impl="flash", scan_layers=False)
@@ -252,7 +366,7 @@ def serve_phase(record: dict, out_dir: Path | None) -> None:
                d2h_flushes=st["d2h_flushes"], launches=launches,
                peak_device_bytes=torch.cuda.max_memory_allocated())
     emit("serve", **row)
-    want = {"tiered_decode": layers * tokens, "flash_attention": layers}
+    want = {"tiered_decode": layers * tokens, "flash_attention": layers, "rglru": 0, "mlstm": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if not st["hot_fraction"] < 1.0 or st["pages_staged"] <= 0:
@@ -261,10 +375,17 @@ def serve_phase(record: dict, out_dir: Path | None) -> None:
         raise AssertionError(f"bad generated tokens: shape {tuple(out.shape)}")
     record["serve"] = row
     del caches
-
-    # Where the time goes: a short profiled rerun (prefill, then 8 decode
-    # steps), outside the timed and counted run above.
     caches = make_tiered_caches(model, cfg, B, prompt_len + 9, window, page, torch.bfloat16, "cuda")
+    profile_serve(model, cfg, params, prompts, caches, out_dir, "serve")
+    del params, caches
+    torch.cuda.empty_cache()
+
+
+def profile_serve(model, cfg, params, prompts, caches, out_dir: Path | None, phase: str) -> None:
+    """Where the time goes: a short profiled rerun (prefill, then 8 decode
+    steps) into fresh ``caches``, outside the timed and counted run."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
     step = make_serve_step(model, cfg)
     state = {}
 
@@ -277,10 +398,8 @@ def serve_phase(record: dict, out_dir: Path | None) -> None:
             state["tok"], state["caches"] = step(params, state["tok"], state["caches"])
 
     for name, fn in (("prefill", prefill), ("decode_8_steps", decode)):
-        table = out_dir / f"profile_{name}.txt" if out_dir else None
-        emit("serve_profile", part=name, **profile_breakdown(fn, table))
-    del params, caches, state
-    torch.cuda.empty_cache()
+        table = out_dir / f"profile_{phase}_{name}.txt" if out_dir else None
+        emit(f"{phase}_profile", part=name, **profile_breakdown(fn, table))
 
 
 def profile_breakdown(fn, table: Path | None, top: int = 6) -> dict:
@@ -334,22 +453,137 @@ def serve_check_phase(record: dict) -> None:
     record["serve_check"] = same
 
 
+# ------------------------------------------------------------ recurrent serve
+
+
+def recurrent_serve_phase(record: dict, out_dir: Path | None, arch: str, B: int, prompt_len: int,
+                          tokens: int) -> None:
+    """One recurrent arch at full width and depth, bf16, attn_impl="flash",
+    through ``steps.dense_serve_loop`` (recurrent states and windowed ring
+    pages); each layer's prefill launches its mixer's kernel once."""
+    import torch
+
+    from repro_torch.configs import get_config, make_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import init_params
+    from repro_torch.launch.steps import dense_serve_loop
+
+    phase = f"serve_{arch.split('_')[0]}"
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
+    model = make_model(cfg)
+    t0 = time.perf_counter()
+    params = init_params(model, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab, (B, prompt_len), generator=gen, device="cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out, prefill_s, decode_s, caches = dense_serve_loop(model, cfg, params, prompts, tokens)
+    launches = ops.launches()
+    kinds = [spec.mixer for spec in model.prefix]
+    row = dict(arch=cfg.name, layers=cfg.n_layers, mixers={k: kinds.count(k) for k in sorted(set(kinds))},
+               batch=B, prompt_len=prompt_len, tokens=tokens, init_s=init_s, prefill_s=prefill_s,
+               prefill_tok_per_s=B * prompt_len / prefill_s, decode_s=decode_s,
+               decode_tok_per_s=B * tokens / decode_s, launches=launches,
+               cache_device_bytes=sum(t.numel() * t.element_size() for c in caches.values()
+                                      for t in c.values() if torch.is_tensor(t)),
+               peak_device_bytes=torch.cuda.max_memory_allocated())
+    emit(phase, **row)
+    want = {"tiered_decode": 0, "flash_attention": kinds.count("gqa"), "rglru": kinds.count("rglru"),
+            "mlstm": kinds.count("mlstm")}
+    if launches != want:
+        raise AssertionError(f"{phase}: launch counts {launches} != {want}")
+    if tuple(out.shape) != (B, tokens + 1) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+        raise AssertionError(f"{phase}: bad generated tokens: shape {tuple(out.shape)}")
+    record[phase] = row
+    del caches
+    profile_serve(model, cfg, params, prompts, model.init_caches(B, prompt_len + 9, torch.bfloat16, "cuda"),
+                  out_dir, phase)
+    del params
+    torch.cuda.empty_cache()
+
+
+def recurrent_serve_check_phase(record: dict, arch: str, B: int, prompt_len: int, tokens: int) -> None:
+    """One period of ``arch`` at full width in fp32: greedy tokens through the
+    kernels (attn_impl "flash") equal tokens through the plain versions
+    ("xla": masked-softmax attention, the sequential recurrences), and the
+    prefill logits agree within the model bar (relative error < 5e-3).
+
+    With random weights the sLSTM recurrence amplifies a difference of a few
+    ulps at its input over its steps (PERF.md), so the xLSTM check keeps its
+    prompt and decode short enough for the tokens to stay comparable."""
+    import torch
+
+    from repro_torch.configs import get_config, make_model
+    from repro_torch.launch.serve import init_params
+    from repro_torch.launch.steps import dense_serve_loop
+
+    torch.cuda.empty_cache()
+    full = get_config(arch)
+    r = full.recurrent
+    period = r.attn_every if r.kind == "rglru" else r.slstm_every
+    base = dataclasses.replace(full, n_layers=period, dtype="float32")
+    kern_cfg = dataclasses.replace(base, attn_impl="flash")
+    plain_cfg = dataclasses.replace(base, attn_impl="xla")
+    model = make_model(kern_cfg)
+    params = init_params(model, seed=1, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, base.vocab, (B, prompt_len), generator=gen, device="cuda")
+    plain_model = make_model(plain_cfg)
+    kern, *_ = dense_serve_loop(model, kern_cfg, params, prompts, tokens, torch.float32)
+    plain, *_ = dense_serve_loop(plain_model, plain_cfg, params, prompts, tokens, torch.float32)
+    same = bool(torch.equal(kern, plain))
+
+    def prefill_rel_err(n: int) -> float:
+        tok = torch.randint(0, base.vocab, (B, n), generator=gen, device="cuda")
+        lk, lp = (m.prefill(params, tok, m.init_caches(B, n + 1, torch.float32, "cuda"))[0]
+                  for m in (model, plain_model))
+        return float((lk - lp).abs().max() / lp.abs().max())
+
+    rel = prefill_rel_err(prompt_len)
+    phase = f"serve_check_{arch.split('_')[0]}"
+    # Not asserted: how far kernel and plain prefill logits part at a 300-token
+    # prompt (the sLSTM's sensitivity shows there).
+    emit(phase, arch=base.name, layers=period, mixers=[spec.mixer for spec in model.prefix], dtype="float32",
+         batch=B, prompt_len=prompt_len, tokens=tokens, tokens_equal=same, prefill_logits_rel_err=rel,
+         prefill_logits_rel_err_at_300=prefill_rel_err(300), kernel_row0=kern[0].tolist(),
+         plain_row0=plain[0].tolist())
+    if not same or not rel < 5e-3:
+        raise AssertionError(f"{phase}: kernel tokens differ from plain tokens, or prefill logits "
+                             f"(relative error {rel})")
+    record[phase] = same
+    del params
+
+
 # ------------------------------------------------------------------------- main
 
 
+SERVE_PHASES = ("serve", "serve_recurrentgemma", "serve_xlstm")
+
+
 def kernels_line(record: dict) -> dict:
-    launches = record["serve"]["launches"]
+    """One entry per kernel: its launches summed over the serve phases (each
+    counted from zero; ``launches_by_phase`` splits them), its largest error
+    over all its cases, and the times and bound of its first case, the
+    shape its main path gives it."""
     out = []
     for name, phase, source, replaces in (
         ("tiered_decode", "tiered_decode", "src/repro_torch/csrc/tiered_decode.cu",
          "src/repro/kernels/tiered_decode.py:133"),
         ("flash_attention", "flash", "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:111"),
+        ("rglru", "rglru", "src/repro_torch/csrc/rglru.cu", "src/repro/kernels/rglru.py:56"),
+        ("mlstm", "mlstm", "src/repro_torch/csrc/mlstm.cu", "src/repro/kernels/mlstm.py:104"),
     ):
         rows = record[phase]
-        main = rows[0]  # the main-path shape
+        main = rows[0]
+        by_phase = {p: record[p]["launches"][name] for p in SERVE_PHASES if record[p]["launches"][name]}
         out.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                        launches=launches[name], max_abs_err=max(r["max_abs_err"] for r in rows),
+                        launches=sum(by_phase.values()), launches_by_phase=by_phase,
+                        max_abs_err=max(r["max_abs_err"] for r in rows),
                         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                         bound_by=main["bound_by"], library_ms=main["library_ms"]))
     return {"kernels": out}
@@ -395,8 +629,14 @@ def main() -> int:
                 shutil.copy(log, out_dir / f"ptxas_{p.stem}.log")
     tiered_decode_phase(record)
     flash_phase(record)
+    rglru_phase(record)
+    mlstm_phase(record)
     serve_phase(record, out_dir)
     serve_check_phase(record)
+    recurrent_serve_phase(record, out_dir, "recurrentgemma_9b", B=4, prompt_len=4096, tokens=64)
+    recurrent_serve_phase(record, out_dir, "xlstm_125m", B=4, prompt_len=2048, tokens=64)
+    recurrent_serve_check_phase(record, "recurrentgemma_9b", B=2, prompt_len=2100, tokens=16)
+    recurrent_serve_check_phase(record, "xlstm_125m", B=2, prompt_len=16, tokens=8)
     print(json.dumps(kernels_line(record)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

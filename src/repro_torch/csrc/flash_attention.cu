@@ -8,7 +8,9 @@
 // (query head h reads kv head h / (H/KV)), causal masking right-aligned when
 // T > S (query row i sits at position i + T - S), an optional sliding window
 // (key position > query position - window) and an optional logit softcap
-// c * tanh(s / c).  Rows with no valid key give 0.  Forward only.
+// c * tanh(s / c).  A row with no valid key (causal with T < S) gives the
+// mean of v over all T keys, as the reference's softmax of T equal -1e30
+// scores does: a rare finalize branch.  Forward only.
 //
 // What bounds it on the H100: operations.  Causal prefill at S = T = 1024,
 // D = 128 does about 2 * 2 * S * T / 2 * D flops per head against 4 * S * D
@@ -27,7 +29,9 @@
 //     loaded: the loop runs over [first needed tile, last needed tile];
 //   * ragged S and T edges are masked in the kernel, nothing is padded.
 // The products run on the CUDA cores in fp32, so the kernel sits far below
-// the tensor-core bound; wgmma with TMA-fed tiles is the later step.
+// the tensor-core bound; wgmma with TMA-fed tiles is the later step.  At
+// D = 256 (recurrentgemma's local attention) the tiles take 98,432 bytes of
+// dynamic shared memory and each lane holds 8 x 8 output accumulators.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -170,11 +174,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
   }
 
+  // Rows that saw no valid key (l == 0, warp-uniform): their acc is still 0;
+  // sum v over all T keys into it, so that the division below gives the mean.
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (q0 + warp * kRows + r >= S || l[r] != 0.f || Tk == 0) continue;
+    for (int t = 0; t < Tk; ++t) {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) {
+        const int d = lane + 32 * e;
+        if (d < D) acc[r][e] += to_f(vb[(size_t)t * D + d]);
+      }
+    }
+    l[r] = (float)Tk;
+  }
+
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int row = q0 + warp * kRows + r;
     if (row >= S) continue;
-    const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];  // fully masked rows -> 0
+    const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];  // l == 0 only when T == 0
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       const int d = lane + 32 * e;
@@ -207,6 +226,7 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o
     case 32: return launch<T, 32>(q, k, v, out, B, H, KV, S, Tk, causal, window, softcap, stream);
     case 64: return launch<T, 64>(q, k, v, out, B, H, KV, S, Tk, causal, window, softcap, stream);
     case 128: return launch<T, 128>(q, k, v, out, B, H, KV, S, Tk, causal, window, softcap, stream);
+    case 256: return launch<T, 256>(q, k, v, out, B, H, KV, S, Tk, causal, window, softcap, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -5,6 +5,7 @@ Causal (right-aligned when T > S), sliding-window and softcapped attention
 with GQA.  One block per (b, h, 32-row query tile) walks the key tiles its
 rows can see, with the online softmax state in fp32 registers; fully
 masked key tiles are skipped and ragged S/T edges are masked in the kernel.
+A row with no valid key gives the mean of v, as the reference does.
 Forward only.
 
 The plain version is ``ref.attention_ref``; ``ops`` chooses.
@@ -15,7 +16,7 @@ from __future__ import annotations
 import torch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def flash_attention_fwd(

@@ -33,7 +33,7 @@ from repro_torch.kernels import ref
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("tiered_decode", "flash_attention")
+SOURCES = ("tiered_decode", "flash_attention", "rglru", "mlstm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -89,9 +89,15 @@ def _bind(lib: ctypes.CDLL, name: str) -> None:
     if name == "tiered_decode":
         fn = lib.tiered_decode_launch
         fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P]
-    else:
+    elif name == "flash_attention":
         fn = lib.flash_attention_launch
         fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, I, P]
+    elif name == "rglru":
+        fn = lib.rglru_scan_launch
+        fn.argtypes = [P, P, P, I, I, I, I, P]
+    else:
+        fn = lib.mlstm_chunkwise_launch
+        fn.argtypes = [P] * 12 + [I, I, I, I, P]
     fn.restype = I
 
 
@@ -154,7 +160,43 @@ def tiered_decode_attention(
     return ref.tiered_ring_attention_ref(q, hot_k, hot_v, cold_k, cold_v, hot_len, cold_len, ring_newest)
 
 
-KERNEL_OPS = {"tiered_decode": tiered_decode_attention, "flash_attention": flash_attention}
+def rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + x_t along S of (B, S, W) inputs from a zero
+    carry (fold a carry-in into x_0); fp32 carry, output in x's dtype."""
+    if x.is_cuda:
+        from repro_torch.kernels.rglru import rglru_scan_fwd
+
+        out = rglru_scan_fwd(a, x)
+        rglru_scan.launches += 1
+        return out
+    return ref.rglru_ref(a, x)
+
+
+def mlstm_chunkwise(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    i_pre: torch.Tensor,  # (B, H, S) log input gate pre-activation
+    f_log: torch.Tensor,  # (B, H, S) log-sigmoid forget gate
+    state: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """mLSTM over S from the carry ``state`` = (C, n, m) (the empty history
+    if None).  Returns (h in q's dtype, the carry-out (C, n, m) in fp32)."""
+    if q.is_cuda:
+        from repro_torch.kernels.mlstm import mlstm_chunkwise_fwd
+
+        out = mlstm_chunkwise_fwd(q, k, v, i_pre, f_log, state)
+        mlstm_chunkwise.launches += 1
+        return out
+    return ref.mlstm_ref(q, k, v, i_pre, f_log, state)
+
+
+KERNEL_OPS = {
+    "tiered_decode": tiered_decode_attention,
+    "flash_attention": flash_attention,
+    "rglru": rglru_scan,
+    "mlstm": mlstm_chunkwise,
+}
 
 
 def reset_launches() -> None:

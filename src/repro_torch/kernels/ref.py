@@ -1,12 +1,16 @@
-"""Plain PyTorch versions of the attention kernels (the correctness ground
-truth) — the port of ``repro/kernels/ref.py``.
+"""Plain PyTorch versions of the kernels (the correctness ground truth) —
+the port of ``repro/kernels/ref.py``.
 
-They repeat the kernels' arithmetic with whole-tensor operations: the CPU
-tests hold them against the JAX oracles, and ``chip_smoke.py`` holds each
-CUDA kernel against them on the card.  They are no yardstick of speed.
+They compute the kernels' functions with whole-tensor operations (the
+recurrences step by step): the CPU tests hold them against the JAX oracles,
+and ``chip_smoke.py`` holds each CUDA kernel against them on the card.
+They are no yardstick of speed.
 
-Shapes follow the kernel conventions (head-major):
-    q: (B, H, S, D);  k, v: (B, KV, T, D)
+Shapes follow the kernel conventions:
+    attention   q: (B, H, S, D);  k, v: (B, KV, T, D)   (head-major)
+    rglru       a, x: (B, S, W) -> h: (B, S, W)
+    mlstm       q, k, v: (B, H, S, D); i, f pre-acts: (B, H, S);
+                carry (C (B, H, D, D) as C[v, k], n (B, H, D), m (B, H))
 """
 
 from __future__ import annotations
@@ -47,9 +51,9 @@ def attention_ref(
 ) -> torch.Tensor:
     """Reference attention; causal masking is right-aligned when T > S.
 
-    A row with no valid key gives 0, as the flash kernel does (``l == 0``
-    guard); the JAX oracle gives the mean of v there, a case its tests and
-    the model never reach (every causal row sees at least its own key)."""
+    A row with no valid key (causal with T < S) softmaxes T equal −1e30
+    scores and gives the mean of v over all T keys, as the JAX oracle and
+    the Pallas kernel do; the flash kernel takes the same value."""
     s, t = q.shape[2], k.shape[2]
     qpos = torch.arange(s, device=q.device)[:, None] + (t - s)
     kpos = torch.arange(t, device=q.device)[None, :]
@@ -58,8 +62,7 @@ def attention_ref(
         mask &= kpos <= qpos
     if window > 0:
         mask &= kpos > qpos - window
-    out = _gqa_softmax_attend(q, k, v, mask, logit_softcap)
-    return torch.where(mask.any(dim=1)[:, None], out, 0.0)
+    return _gqa_softmax_attend(q, k, v, mask, logit_softcap)
 
 
 def decode_attention_ref(
@@ -96,3 +99,59 @@ def tiered_ring_attention_ref(
     v = torch.cat([cold_v, hot_v], dim=2)
     out = _gqa_softmax_attend(q, k, v, valid)
     return out if bool(valid.any()) else torch.zeros_like(out)
+
+
+def rglru_ref(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor | None = None) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + x_t along axis 1 from ``h0`` (zeros if None),
+    with an fp32 carry; the output takes x's dtype."""
+    b, s, w = a.shape
+    h = torch.zeros((b, w), dtype=torch.float32, device=a.device) if h0 is None else h0.float()
+    out = torch.empty((b, s, w), dtype=x.dtype, device=x.device)
+    for t in range(s):
+        h = a[:, t].float() * h + x[:, t].float()
+        out[:, t] = h
+    return out
+
+
+def mlstm_step(carry, q, k, v, i_pre, f_log):
+    """One mLSTM time step with the max stabiliser (``_mlstm_cell`` of the
+    JAX model, which decode runs).  carry: (C (B,H,D,D) as C[v, k], n (B,H,D), m (B,H)), fp32;
+    m = -inf is the empty history.  q, k, v: (B,H,D); gates: (B,H).
+    Returns (new carry, h (B,H,D) fp32)."""
+    C, n, m = carry
+    q, k, v, i_pre, f_log = (t.float() for t in (q, k, v, i_pre, f_log))
+    no_hist = torch.isinf(m) & (m < 0)
+    m_safe = torch.where(no_hist, 0.0, m)  # NaN-free in both where-branches
+    m_new = torch.maximum(torch.where(no_hist, i_pre, f_log + m_safe), i_pre)
+    i_g = torch.exp(i_pre - m_new)
+    f_g = torch.where(no_hist, 0.0, torch.exp(f_log + m_safe - m_new))
+    C = f_g[..., None, None] * C + i_g[..., None, None] * (v[..., :, None] * k[..., None, :])
+    n = f_g[..., None] * n + i_g[..., None] * k
+    denom = torch.clamp(torch.abs(torch.einsum("bhd,bhd->bh", n, q)), min=1.0)
+    h = torch.einsum("bhde,bhe->bhd", C, q) / denom[..., None]
+    return (C, n, m_new), h
+
+
+def mlstm_ref(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    i_pre: torch.Tensor,  # (B, H, S) log input gate pre-activation
+    f_log: torch.Tensor,  # (B, H, S) log forget gate (log sigmoid applied)
+    state: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Sequential mLSTM from ``state`` = (C, n, m) (the empty history if
+    None).  Returns (h (B,H,S,D) in q's dtype, the final (C, n, m) in fp32)
+    — the JAX oracle's h, plus the carry the model keeps for decode."""
+    b, h, s, d = q.shape
+    if state is None:
+        state = (
+            torch.zeros((b, h, d, d), dtype=torch.float32, device=q.device),
+            torch.zeros((b, h, d), dtype=torch.float32, device=q.device),
+            torch.full((b, h), float("-inf"), dtype=torch.float32, device=q.device),
+        )
+    carry = tuple(t.float() for t in state)
+    out = torch.empty_like(q)
+    for t in range(s):
+        carry, out[:, :, t] = mlstm_step(carry, q[:, :, t], k[:, :, t], v[:, :, t], i_pre[:, :, t], f_log[:, :, t])
+    return out, carry

@@ -4,41 +4,44 @@ unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --batch 4 --prompt-len 1024 --tokens 64 --kv-window 256 --kv-page 128
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
+        --batch 4 --prompt-len 4096 --tokens 64
+
 ``--kv-window W`` routes every full-attention layer's KV through the
 two-level ``TieredKVCache`` (device hot ring of W tokens + paged pinned host
-cold tier) and runs prefill through the flash kernel unless ``--attn-impl
-xla`` is given; ``--kv-page`` sets the cold staging page.  Without it the
-dense dict-cache loop runs, with the config's ``attn_impl``.  Weights are random, drawn from ``--seed``; the
-decoder's matrices are held in the compute dtype (see
-``nn.module.cast_matrices``).
+cold tier); ``--kv-page`` sets the cold staging page.  Without it the dense
+dict-cache loop runs: windowed attention keeps its O(window) ring page and
+the recurrent layers (recurrentgemma-9b, xlstm-125m) their O(1) states.
+Prefill runs the kernels (flash attention, the RG-LRU scan, the chunkwise
+mLSTM) unless ``--attn-impl xla`` asks for their plain versions.  Weights
+are random, drawn from ``--seed``; the decoder's matrices are held in the
+compute dtype (see ``init_params``).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_reduced, make_model
-from repro_torch.launch.steps import (
-    make_prefill_step,
-    make_serve_step,
-    sync_device,
-    tiered_cache_stats,
-    tiered_serve_loop,
-)
+from repro_torch.launch.steps import dense_serve_loop, tiered_cache_stats, tiered_serve_loop
 from repro_torch.nn.layers import cdtype
 from repro_torch.nn.module import cast_matrices, init_with_axes
+from repro_torch.nn.recurrent import FP32_MATRICES
 
 
 def init_params(model, seed: int, device):
     """Random weights from ``seed`` on ``device``: fp32 masters, then the
-    matrices cast once to the compute dtype (the LM head stays fp32)."""
+    matrices cast once to the compute dtype.  What the layers read in fp32
+    stays fp32: the LM head, the embedding table when the head is tied to it
+    (a bf16 table would be copied to fp32 at every step), and the recurrent
+    blocks' fp32 matrices (``nn.recurrent.FP32_MATRICES``)."""
     params, _ = init_with_axes(model.init, seed, device=device, dtype=torch.float32)
-    return cast_matrices(params, cdtype(model.cfg))
+    keep = ("head", *FP32_MATRICES) + (("embed",) if model.cfg.tie_embeddings else ())
+    return cast_matrices(params, cdtype(model.cfg), keep)
 
 
 def _prompts(cfg, batch: int, prompt_len: int, seed: int, device) -> torch.Tensor:
@@ -47,28 +50,13 @@ def _prompts(cfg, batch: int, prompt_len: int, seed: int, device) -> torch.Tenso
 
 
 def serve_loop(cfg, batch: int, prompt_len: int, tokens: int, seed: int = 0, device="cuda"):
-    """Dense dict-cache prefill + decode. Returns (generated, prefill_s, decode_s)."""
+    """Prefill + decode over the model's own caches (dict KV pages, windowed
+    ring pages, recurrent states). Returns (generated, prefill_s, decode_s)."""
     model = make_model(cfg)
     params = init_params(model, seed, device)
     prompts = _prompts(cfg, batch, prompt_len, seed, device)
-    caches = model.init_caches(batch, prompt_len + tokens + 1, torch.bfloat16, device)
-    prefill = make_prefill_step(model, cfg)
-    step = make_serve_step(model, cfg)
-
-    t0 = time.perf_counter()
-    tok, caches = prefill(params, {"inputs": prompts}, caches)
-    tok = tok[:, None]
-    sync_device(device)
-    prefill_s = time.perf_counter() - t0
-
-    out = [tok]
-    t0 = time.perf_counter()
-    for _ in range(tokens):
-        tok, caches = step(params, tok, caches)
-        out.append(tok)
-    sync_device(device)
-    decode_s = time.perf_counter() - t0
-    return torch.cat(out, dim=1), prefill_s, decode_s
+    gen, prefill_s, decode_s, _ = dense_serve_loop(model, cfg, params, prompts, tokens)
+    return gen, prefill_s, decode_s
 
 
 def tiered_serve(cfg, batch: int, prompt_len: int, tokens: int, window: int,
@@ -99,9 +87,8 @@ def main() -> None:
                     help="route full-attention KV through the tiered cache (hot ring size)")
     ap.add_argument("--kv-page", type=int, default=0,
                     help="cold-tier staging page in tokens (default min(window, 512))")
-    ap.add_argument("--attn-impl", choices=("xla", "flash"), default=None,
-                    help="prefill attention: 'flash' runs the flash kernel "
-                         "(default: 'flash' with --kv-window, else the config's)")
+    ap.add_argument("--attn-impl", choices=("xla", "flash"), default="flash",
+                    help="prefill: 'flash' (default) runs the kernels, 'xla' their plain versions")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args()
@@ -111,11 +98,10 @@ def main() -> None:
         gen, prefill_s, decode_s, st = tiered_serve(
             cfg, args.batch, args.prompt_len, args.tokens, window=args.kv_window,
             page=args.kv_page or None, seed=args.seed, device=args.device,
-            attn_impl=args.attn_impl or "flash",
+            attn_impl=args.attn_impl,
         )
     else:
-        if args.attn_impl:
-            cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+        cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
         gen, prefill_s, decode_s = serve_loop(
             cfg, args.batch, args.prompt_len, args.tokens, seed=args.seed, device=args.device,
         )

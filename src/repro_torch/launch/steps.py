@@ -37,7 +37,8 @@ def make_tiered_caches(
 ) -> dict:
     """Caches for the two-level serving backend: every full-attention GQA
     layer gets a ``TieredKVCache`` (device hot ring + paged host cold tier);
-    windowed layers keep their O(window) dict cache.  ``impl`` is the
+    windowed and recurrent layers keep their O(window) and O(1) caches
+    (``make_layer_cache``).  ``impl`` is the
     tiered caches' attend path (``"kernel"`` or ``"plain"``)."""
     hd = cfg.resolved_head_dim
     caches: dict[str, Any] = {}
@@ -60,6 +61,45 @@ def sync_device(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def dense_serve_loop(
+    model,
+    cfg: ArchConfig,
+    params: PyTree,
+    prompts: torch.Tensor,  # (B, S) int
+    tokens: int,
+    dtype=torch.bfloat16,
+) -> tuple[torch.Tensor, float, float, dict]:
+    """Batched prefill + greedy decode over the model's own caches (dict KV
+    pages, windowed ring pages, recurrent states), on the device ``prompts``
+    lie on.  Returns (generated, prefill_s, decode_s, caches)."""
+    batch, prompt_len = prompts.shape
+    device = prompts.device
+    caches = model.init_caches(batch, prompt_len + tokens + 1, dtype, device)
+    return _greedy(model, cfg, params, prompts, tokens, caches)
+
+
+def _greedy(model, cfg, params, prompts, tokens, caches):
+    """Prefill ``prompts`` into ``caches``, then ``tokens`` greedy decode
+    steps; each phase is timed up to a synchronise of the device."""
+    prefill = make_prefill_step(model, cfg)
+    step = make_serve_step(model, cfg)
+
+    t0 = time.perf_counter()
+    tok, caches = prefill(params, {"inputs": prompts}, caches)
+    tok = tok[:, None]
+    sync_device(prompts.device)
+    prefill_s = time.perf_counter() - t0
+
+    out = [tok]
+    t0 = time.perf_counter()
+    for _ in range(tokens):
+        tok, caches = step(params, tok, caches)
+        out.append(tok)
+    sync_device(prompts.device)
+    decode_s = time.perf_counter() - t0
+    return torch.cat(out, dim=1), prefill_s, decode_s, caches
+
+
 def tiered_serve_loop(
     model,
     cfg: ArchConfig,
@@ -75,27 +115,10 @@ def tiered_serve_loop(
     cache, on the device ``prompts`` lie on.  Returns (generated, prefill_s,
     decode_s, caches) — read per-layer ``TieredKVStats`` off the caches."""
     batch, prompt_len = prompts.shape
-    device = prompts.device
     caches = make_tiered_caches(
-        model, cfg, batch, prompt_len + tokens + 1, window, page, dtype, device, impl,
+        model, cfg, batch, prompt_len + tokens + 1, window, page, dtype, prompts.device, impl,
     )
-    prefill = make_prefill_step(model, cfg)
-    step = make_serve_step(model, cfg)
-
-    t0 = time.perf_counter()
-    tok, caches = prefill(params, {"inputs": prompts}, caches)
-    tok = tok[:, None]
-    sync_device(device)
-    prefill_s = time.perf_counter() - t0
-
-    out = [tok]
-    t0 = time.perf_counter()
-    for _ in range(tokens):
-        tok, caches = step(params, tok, caches)
-        out.append(tok)
-    sync_device(device)
-    decode_s = time.perf_counter() - t0
-    return torch.cat(out, dim=1), prefill_s, decode_s, caches
+    return _greedy(model, cfg, params, prompts, tokens, caches)
 
 
 def tiered_cache_stats(caches: dict) -> dict:

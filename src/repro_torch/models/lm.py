@@ -1,6 +1,8 @@
 """Decoder-only LM of the port — ``repro/models/lm.py`` for the dense GQA
-family (qwen3-8b).  MoE, MLA, the recurrent mixers, VLM patches and the MTP
-head wait for their slices and are refused at construction.
+family (qwen3-8b) and the recurrent ones: the RG-LRU hybrid with local
+attention (recurrentgemma-9b) and xLSTM (xlstm-125m).  MoE, MLA, VLM
+patches and the MTP head wait for their slices and are refused at
+construction.
 
 The stack is always unrolled (``prefix_0 .. prefix_{L-1}``): PyTorch runs
 eagerly and has no ``lax.scan``, and the two-level cache is host state that
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import layers as L
+from repro_torch.nn import recurrent as R
 from repro_torch.nn.module import Scope
 
 Params = Any
@@ -36,14 +39,25 @@ class LayerSpec:
 
 
 def layer_specs(cfg: ArchConfig) -> list[LayerSpec]:
-    """Expand a dense GQA config into its per-layer specs (the recurrent,
-    MLA and MoE branches of the JAX version come with their slices)."""
+    """Expand a config into its per-layer specs (the MLA and MoE branches of
+    the JAX version come with their slice)."""
     specs: list[LayerSpec] = []
     for i in range(cfg.n_layers):
-        window = cfg.window
-        if cfg.global_every > 0 and i % cfg.global_every == cfg.global_every - 1:
-            window = 0  # periodic global layer (gemma3 5:1)
-        specs.append(LayerSpec("gqa", window=window))
+        if cfg.recurrent is not None and cfg.recurrent.kind == "rglru":
+            every = cfg.recurrent.attn_every
+            if i % every == every - 1:
+                specs.append(LayerSpec("gqa", window=cfg.window or 2048))
+            else:
+                specs.append(LayerSpec("rglru"))
+        elif cfg.recurrent is not None and cfg.recurrent.kind == "xlstm":
+            every = cfg.recurrent.slstm_every
+            kind = "slstm" if i % every == every - 1 else "mlstm"
+            specs.append(LayerSpec(kind, ffn="none"))
+        else:
+            window = cfg.window
+            if cfg.global_every > 0 and i % cfg.global_every == cfg.global_every - 1:
+                window = 0  # periodic global layer (gemma3 5:1)
+            specs.append(LayerSpec("gqa", window=window))
     return specs
 
 
@@ -52,43 +66,60 @@ def stack_plan(cfg: ArchConfig) -> tuple[list[LayerSpec], list[LayerSpec], int, 
     return layer_specs(cfg), [], 0, []
 
 
+_MIXER_INIT = {"gqa": L.attention_init, "rglru": R.rglru_init, "mlstm": R.mlstm_init, "slstm": R.slstm_init}
+_RECURRENT_APPLY = {"rglru": R.rglru_block_apply, "mlstm": R.mlstm_block_apply, "slstm": R.slstm_block_apply}
+
+
 def init_layer(scope: Scope, spec: LayerSpec, cfg: ArchConfig) -> None:
     L.norm_init(scope, "pre_norm", cfg.d_model, cfg)
-    L.attention_init(scope, "mixer", cfg)
+    _MIXER_INIT[spec.mixer](scope, "mixer", cfg)
     if cfg.post_norms:
         L.norm_init(scope, "post_mixer_norm", cfg.d_model, cfg)
-    L.norm_init(scope, "pre_ffn_norm", cfg.d_model, cfg)
-    L.mlp_init(scope, "ffn", cfg)
-    if cfg.post_norms:
-        L.norm_init(scope, "post_ffn_norm", cfg.d_model, cfg)
+    if spec.ffn != "none":
+        L.norm_init(scope, "pre_ffn_norm", cfg.d_model, cfg)
+        L.mlp_init(scope, "ffn", cfg)
+        if cfg.post_norms:
+            L.norm_init(scope, "post_ffn_norm", cfg.d_model, cfg)
 
 
 def make_layer_cache(spec: LayerSpec, cfg: ArchConfig, batch: int, max_seq: int, dtype, device="cuda") -> dict:
-    # Sliding-window layers only ever need `window` keys; cap the page.
-    size = min(max_seq, spec.window) if spec.window > 0 else max_seq
-    return L.make_cache(cfg, batch, size, dtype, device)
+    if spec.mixer == "gqa":
+        # Sliding-window layers only ever need `window` keys; cap the page.
+        size = min(max_seq, spec.window) if spec.window > 0 else max_seq
+        return L.make_cache(cfg, batch, size, dtype, device)
+    if spec.mixer == "rglru":
+        return R.rglru_make_state(cfg, batch, dtype, device)
+    if spec.mixer == "mlstm":
+        return R.mlstm_make_state(cfg, batch, device)
+    if spec.mixer == "slstm":
+        return R.slstm_make_state(cfg, batch, device)
+    raise ValueError(spec.mixer)
 
 
 def apply_layer(p: Params, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig,
                 cache: Any = None, mode: str = "train") -> tuple[torch.Tensor, Any]:
     """Residual layer body. Returns (x, new_cache)."""
     h = L.norm_apply(p["pre_norm"], x, cfg)
-    mix, new_cache = L.attention_apply(p["mixer"], h, cfg, window=spec.window, cache=cache, mode=mode)
+    if spec.mixer == "gqa":
+        mix, new_cache = L.attention_apply(p["mixer"], h, cfg, window=spec.window, cache=cache, mode=mode)
+    else:
+        mix, new_cache = _RECURRENT_APPLY[spec.mixer](p["mixer"], h, cfg, state=cache)
     if cfg.post_norms:
         mix = L.norm_apply(p["post_mixer_norm"], mix, cfg)
     x = x + mix
-    h2 = L.norm_apply(p["pre_ffn_norm"], x, cfg)
-    f = L.mlp_apply(p["ffn"], h2, cfg)
-    if cfg.post_norms:
-        f = L.norm_apply(p["post_ffn_norm"], f, cfg)
-    return x + f, new_cache
+    if spec.ffn != "none":
+        h2 = L.norm_apply(p["pre_ffn_norm"], x, cfg)
+        f = L.mlp_apply(p["ffn"], h2, cfg)
+        if cfg.post_norms:
+            f = L.norm_apply(p["post_ffn_norm"], f, cfg)
+        x = x + f
+    return x, new_cache
 
 
 class LM:
     def __init__(self, cfg: ArchConfig):
         missing = [name for name, on in (
-            ("moe", cfg.moe is not None), ("mla", cfg.attn_type != "gqa"),
-            ("recurrent", cfg.recurrent is not None), ("vlm", cfg.vlm is not None),
+            ("moe", cfg.moe is not None), ("mla", cfg.attn_type == "mla"), ("vlm", cfg.vlm is not None),
             ("encdec", cfg.encdec is not None), ("mtp", cfg.mtp),
         ) if on]
         if missing:

@@ -10,7 +10,7 @@ for leaf (``params_from_jax``).
 The numbers differ from JAX's by construction (``jax.random`` and
 ``torch.Generator`` are different generators); the schemes are the same:
 ``normal`` (std 0.02 unless scaled), ``fan_in`` (std scale/sqrt(shape[0])),
-``zeros``, ``ones``.
+``zeros``, ``ones``, ``uniform`` (U(-s, s), s = scale or 1).
 """
 
 from __future__ import annotations
@@ -67,6 +67,9 @@ class Scope:
             val = torch.zeros(shape, **kw)
         elif init == "ones":
             val = torch.ones(shape, **kw)
+        elif init == "uniform":
+            s = scale if scale is not None else 1.0
+            val = (torch.rand(shape, generator=self._gen, **kw) * 2.0 - 1.0) * s
         else:
             raise ValueError(f"unknown init {init!r}")
         self.params[name] = val
@@ -91,18 +94,23 @@ def init_with_axes(
 
 def cast_matrices(params: PyTree, dtype, keep: tuple[str, ...] = ("head",)) -> PyTree:
     """Cast every parameter of rank >= 2 to ``dtype``, except the subtrees
-    named in ``keep``; vectors (norm scales, biases) stay as they are.
+    and leaves named in ``keep``; vectors (norm scales, biases) stay as they
+    are.
 
     The JAX layers cast each matrix with ``.astype(compute dtype)`` at every
     call (``linear_apply``, the attention einsums, ``embedding_apply``), so
     one cast up front gives exactly the values they use and halves the
     weights' memory.  Vectors are read in fp32 by the norms, and the LM head
-    is read in fp32 by ``logits_apply``: both keep their master dtype.
+    is read in fp32 by ``logits_apply``: both keep their master dtype.  A
+    tied head reads the embedding table, so a tied model keeps ``embed`` as
+    well (the lookup casts the gathered rows, as the JAX layer does).
     """
     out = {}
     for k, v in params.items():
-        if isinstance(v, dict):
-            out[k] = v if k in keep else cast_matrices(v, dtype, keep)
+        if k in keep:
+            out[k] = v
+        elif isinstance(v, dict):
+            out[k] = cast_matrices(v, dtype, keep)
         else:
             out[k] = v.to(dtype) if v.ndim >= 2 and v.is_floating_point() else v
     return out

@@ -17,6 +17,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# mLSTM in fp32: tests/test_kernels.py's 2e-4 (the chunkwise sums run in
+# another order than the sequential scan's).
+MLSTM_TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 # (hot_len, cold_len, newest): hot 16 slots, cold capacity 64
 TIERED_CASES = [(16, 40, 15), (0, 40, 7), (12, 0, 11), (16, 32, 5), (9, 48, 3), (16, 64, 0), (0, 0, 0)]
 
@@ -38,8 +41,12 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     rnd = lambda *s: torch.randn(s, generator=g, device=cuda_device).to(dt)
     before = ops.launches()
-    for s, t, window in ((50, 50, 0), (24, 64, 0), (96, 96, 16)):
-        q, k, v = rnd(2, 8, s, 32), rnd(2, 2, t, 32), rnd(2, 2, t, 32)
+    # (B, H, KV, S, T, D, window): ragged, T > S, window, fully masked rows
+    # (T < S: rows 0-15 see no key and give the mean of v), and D = 256 MQA.
+    flash_cases = [(2, 8, 2, 50, 50, 32, 0), (2, 8, 2, 24, 64, 32, 0), (2, 8, 2, 96, 96, 32, 16),
+                   (1, 2, 2, 40, 24, 32, 0), (1, 16, 1, 80, 80, 256, 48)]
+    for b, h, kv, s, t, d, window in flash_cases:
+        q, k, v = rnd(b, h, s, d), rnd(b, kv, t, d), rnd(b, kv, t, d)
         got = ops.flash_attention(q, k, v, window=window)
         torch.testing.assert_close(got, tref.attention_ref(q, k, v, window=window), **TOL[dtype])
     for hot_len, cold_len, newest in TIERED_CASES:
@@ -49,7 +56,7 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
         torch.testing.assert_close(got, want, **TOL[dtype])
     torch.cuda.synchronize()
     after = ops.launches()
-    assert after["flash_attention"] - before["flash_attention"] == 3
+    assert after["flash_attention"] - before["flash_attention"] == len(flash_cases)
     assert after["tiered_decode"] - before["tiered_decode"] == len(TIERED_CASES)
 
 
@@ -74,7 +81,87 @@ def test_cuda_tiered_serve_matches_plain(cuda_device):
                             generator=torch.Generator(device=cuda_device).manual_seed(0))
     ops.reset_launches()
     kern, *_ = tiered_serve_loop(model, kern_cfg, params, prompts, 12, 16, 8, torch.float32, "kernel")
-    assert ops.launches() == {"tiered_decode": base.n_layers * 12, "flash_attention": base.n_layers}
+    assert ops.launches() == {"tiered_decode": base.n_layers * 12, "flash_attention": base.n_layers,
+                              "rglru": 0, "mlstm": 0}
     plain, *_ = tiered_serve_loop(make_model(plain_cfg), plain_cfg, params, prompts, 12, 16, 8,
                                   torch.float32, "plain")
+    torch.testing.assert_close(kern, plain, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rglru_matches_plain(cuda_device, dtype):
+    """The RG-LRU kernel against ``ref.rglru_ref``: one step, ragged S and
+    W (not multiples of the unroll or the block), and a wide W."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    before = ops.launches()["rglru"]
+    shapes = [(1, 1, 64), (2, 300, 50), (2, 37, 130), (1, 64, 1024)]
+    for b, s, w in shapes:
+        a = (0.5 + 0.5 * torch.rand((b, s, w), generator=g, device=cuda_device)).to(dt)
+        x = torch.randn((b, s, w), generator=g, device=cuda_device).to(dt)
+        torch.testing.assert_close(ops.rglru_scan(a, x), tref.rglru_ref(a, x), **TOL[dtype])
+    torch.cuda.synchronize()
+    assert ops.launches()["rglru"] - before == len(shapes)
+
+
+def _mlstm_inputs(g, b, h, s, d, dt, device):
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=device)
+    q, k, v = rnd(b, h, s, d).to(dt), (rnd(b, h, s, d) / d**0.5).to(dt), rnd(b, h, s, d).to(dt)
+    i_pre = (0.5 * rnd(b, h, s)).to(dt)
+    f_log = torch.nn.functional.logsigmoid(rnd(b, h, s) + 2.0).to(dt)
+    return q, k, v, i_pre, f_log
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [32, 64, 384])
+def test_cuda_mlstm_matches_plain(cuda_device, dtype, d):
+    """The chunkwise mLSTM kernel against ``ref.mlstm_ref``: h and the
+    carry-out, from the empty history (None, and an m = -inf carry-in), over
+    a ragged S, and from a non-zero carry-in (the carry-out of a first
+    segment), which must continue the sequence."""
+    dt = getattr(torch, dtype)
+    tol = MLSTM_TOL[dtype]
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    b, h, s1, s2 = 2, 2, 70, 45
+    q, k, v, ip, fl = _mlstm_inputs(g, b, h, s1 + s2, d, dt, cuda_device)
+    first = lambda t: t[:, :, :s1].contiguous()
+    second = lambda t: t[:, :, s1:].contiguous()
+    want_h, want_carry = tref.mlstm_ref(q, k, v, ip, fl)
+    fresh = (torch.zeros((b, h, d, d), device=cuda_device), torch.zeros((b, h, d), device=cuda_device),
+             torch.full((b, h), float("-inf"), device=cuda_device))
+    h1, carry1 = ops.mlstm_chunkwise(*map(first, (q, k, v, ip, fl)))
+    h1_inf, carry1_inf = ops.mlstm_chunkwise(*map(first, (q, k, v, ip, fl)), fresh)
+    h2, carry2 = ops.mlstm_chunkwise(*map(second, (q, k, v, ip, fl)), carry1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(h1_inf, h1, rtol=0, atol=0)
+    for got, want in zip(carry1_inf, carry1):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(torch.cat([h1, h2], dim=2), want_h, **tol)
+    for got, want in zip(carry2, want_carry):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "xlstm_125m"])
+def test_cuda_recurrent_serve_matches_plain(cuda_device, arch):
+    """Reduced recurrent models in fp32 on the card: greedy tokens through
+    the kernels (attn_impl "flash") equal tokens through the plain versions
+    ("xla"), and every recurrent layer launched its kernel once in prefill."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced, make_model
+    from repro_torch.launch.serve import serve_loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = dataclasses.replace(get_reduced(arch), dtype="float32")
+    kinds = [spec.mixer for spec in make_model(base).prefix]
+    ops.reset_launches()
+    kern, *_ = serve_loop(dataclasses.replace(base, attn_impl="flash"), 2, 40, 8, device=cuda_device)
+    launches = ops.launches()
+    assert launches["rglru"] == kinds.count("rglru") and launches["mlstm"] == kinds.count("mlstm")
+    assert launches["flash_attention"] == kinds.count("gqa")
+    plain, *_ = serve_loop(dataclasses.replace(base, attn_impl="xla"), 2, 40, 8, device=cuda_device)
     torch.testing.assert_close(kern, plain, rtol=0, atol=0)

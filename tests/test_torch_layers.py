@@ -52,10 +52,11 @@ def init_both(init_fn_jax, seed=0):
     return params, params_from_jax(params, device="cpu")
 
 
+@pytest.mark.parametrize("arch", ["qwen3_8b", "recurrentgemma_9b", "xlstm_125m"])
 @pytest.mark.parametrize("which", ["get_config", "get_reduced"])
-def test_config_copy_matches_jax(which):
-    want = dataclasses.asdict(getattr(jcfgs, which)("qwen3_8b"))
-    got = dataclasses.asdict(getattr(tcfgs, which)("qwen3-8b"))
+def test_config_copy_matches_jax(which, arch):
+    want = dataclasses.asdict(getattr(jcfgs, which)(arch))
+    got = dataclasses.asdict(getattr(tcfgs, which)(arch.replace("_", "-")))
     assert got == want
     assert [f.name for f in dataclasses.fields(tcfgs.ArchConfig)] == [f.name for f in dataclasses.fields(jcfgs.ArchConfig)]
     assert tcfgs.SHAPES == {k: tcfgs.ShapeCell(**dataclasses.asdict(v)) for k, v in jcfgs.SHAPES.items()}
