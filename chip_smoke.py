@@ -9,13 +9,18 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 2. build         the four CUDA kernels built by nvcc for sm_90a from
                  src/repro_torch/csrc, one nvcc per source, all started together
 3. tiered_decode the decode kernel against its plain version at the serving
-                 shape (B=4, H=32, KV=8, D=128, W=256, C=1024) and at the edge
-                 cases, each in bf16 and again in fp32; error, kernel / plain /
-                 SDPA ms and the bound
+                 shape (B=4, H=32, KV=8, D=128, W=256, C=1024), at the edge
+                 cases and at a long history (cold 7936 of C=8192), each in
+                 bf16 and again in fp32; the split count, error, the whole
+                 op's ms (both launches), plain / SDPA ms and the bound
 4. flash         the flash kernel against its plain version at S=T=1024 causal,
                  T > S, window 64, softcap 30, ragged S=200, rows with no key
-                 (T < S) and recurrentgemma's D=256 MQA window-2048 S=4096
-                 prefill, each in bf16 and again in fp32
+                 (T < S, at D=32 and D=128), D=64, recurrentgemma's D=256 MQA
+                 window-2048 S=4096 prefill and a ragged D=256 case, each in
+                 bf16 and again in fp32; which kernel each took (bf16 at
+                 D=64/128/256: the tensor cores), and SDPA as yardstick, with
+                 the mask as a tensor and, where the mask is plain causal,
+                 with is_causal
 5. rglru         the RG-LRU scan kernel against its plain version at the serving
                  shape (B=4, S=4096, W=4096) and at S=1, ragged S=300, W=50,
                  each in fp32 (the model's dtype) and again in bf16
@@ -39,7 +44,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                  it, max error, times, bound
 
 Each serve phase zeroes the kernels' launch counts just before it serves and
-reads them just after, and asserts them.  Every phase runs, at the configs' full depth.  The nvidia-smi line comes
+reads them just after, and asserts them, and that every bf16 flash launch
+took the tensor-core kernel.  Every phase runs, at the configs' full depth.  The nvidia-smi line comes
 first; the last line is the contract line ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it, as does a machine without CUDA or a
 directory without the repository's sources.
@@ -111,25 +117,29 @@ def tiered_decode_phase(record: dict) -> None:
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.ops import load
-    from repro_torch.kernels.tiered_decode import _DTYPES, tiered_decode_attention_fwd
+    from repro_torch.kernels.tiered_decode import _DTYPES, blocks_per_sm, plan_splits, tiered_decode_attention_fwd
 
-    B, H, KV, D, W, C = 4, 32, 8, 128, 256, 1024
+    B, H, KV, D, W = 4, 32, 8, 128, 256
     # Serving at prompt 1024 + 64 tokens with page 128 keeps cold_len = 896 and
-    # hot_len in [129, 192]; the last step is the "serve" case.  Each case runs
-    # in bf16 (the serving dtype) and again in fp32, where rtol = atol = 2e-5
-    # catches a mask off by one key (a weight near 1/1000 of the output).
-    shapes = [  # name, hot_len, cold_len, newest
-        ("serve", 192, 896, 63),
-        ("hot_len=0", 0, 896, 63),
-        ("cold_len=0", 200, 0, 199),
-        ("ring_wrap_full", 256, 512, 100),
-        ("cold_len_ragged", 150, 700, 20),
+    # hot_len in [129, 192]; the last step is the "serve" case.  "long_history"
+    # is a 8192-token history (cold 7936 in an 8192-row buffer, hot 256), where
+    # the split has the most keys to spread.  Each case runs in bf16 (the
+    # serving dtype) and again in fp32, where rtol = atol = 2e-5 catches a mask
+    # off by one key (a weight near 1/1000 of the output).
+    shapes = [  # name, hot_len, cold_len, newest, C
+        ("serve", 192, 896, 63, 1024),
+        ("hot_len=0", 0, 896, 63, 1024),
+        ("cold_len=0", 200, 0, 199, 1024),
+        ("ring_wrap_full", 256, 512, 100, 1024),
+        ("cold_len_ragged", 150, 700, 20, 1024),
+        ("long_history", 256, 7936, 255, 8192),
     ]
     cases = [(name if dt == "bfloat16" else name + "_fp32", dt, *rest) for dt in DTYPES for name, *rest in shapes]
     lib = load("tiered_decode")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(0)
     copies = 4  # rotate inputs so the K/V of one launch is not L2-resident for the next
-    for name, dt_name, hot_len, cold_len, newest in cases:
+    for name, dt_name, hot_len, cold_len, newest, C in cases:
         dt = getattr(torch, dt_name)
         sets = []
         for _ in range(copies):
@@ -141,10 +151,14 @@ def tiered_decode_phase(record: dict) -> None:
         torch.cuda.synchronize()
         err, ok = within_tol(got, want, dt_name)
 
+        # The whole op, both launches (one C call), on pre-made outputs and scratch.
+        n_split = plan_splits(hot_len + cold_len, B * KV, sms, blocks_per_sm(H // KV))
         outs = [torch.empty_like(s[0]) for s in sets]
+        scratch = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32, device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
         raw = [(s[0].data_ptr(), s[1].data_ptr(), s[2].data_ptr(), s[3].data_ptr(), s[4].data_ptr(),
-                o.data_ptr(), B, H, KV, W, C, D, hot_len, cold_len, newest, _DTYPES[dt], stream)
+                o.data_ptr(), scratch.data_ptr(), B, H, KV, W, C, D, hot_len, cold_len, newest, n_split,
+                _DTYPES[dt], stream)
                for s, o in zip(sets, outs)]
         it = iter(range(1 << 30))
         ms = time_ms(lambda: lib.tiered_decode_launch(*raw[next(it) % copies]), iters=40)
@@ -163,13 +177,14 @@ def tiered_decode_phase(record: dict) -> None:
         moved = 2 * B * KV * n_keys * D * isz + 2 * B * H * D * isz
         flops = 4 * B * H * n_keys * D
         bound_ms, bound_by = bound(moved, flops, dt_name)
-        row = dict(case=name, dtype=dt_name, hot_len=hot_len, cold_len=cold_len, newest=newest,
-                   max_abs_err=err, tol=TOL[dt_name], ok=ok, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        row = dict(case=name, dtype=dt_name, hot_len=hot_len, cold_len=cold_len, newest=newest, C=C,
+                   n_split=n_split, blocks=B * KV * n_split, max_abs_err=err, tol=TOL[dt_name], ok=ok, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         emit("tiered_decode", **row)
         if not ok:
             raise AssertionError(f"tiered_decode {name}: not within rtol=atol={TOL[dt_name]} (max abs err {err})")
         record.setdefault("tiered_decode", []).append(row)
+        del sets, lib_in, outs, scratch
 
 
 # ------------------------------------------------------------------------ flash
@@ -180,7 +195,7 @@ def flash_phase(record: dict) -> None:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_path
 
     qwen = (4, 32, 8, 128)  # B, H, KV, D of qwen3-8b's prefill
     shapes = [  # name, (B, H, KV, D), S, T, window, softcap; each in bf16, then in fp32
@@ -190,7 +205,10 @@ def flash_phase(record: dict) -> None:
         ("softcap_30", qwen, 1024, 1024, 0, 30.0),
         ("ragged_200", qwen, 200, 200, 0, 0.0),
         ("rows_without_key", (1, 2, 2, 32), 40, 24, 0, 0.0),  # rows 0-15 see no key: mean of v
+        ("rows_without_key_d128", (1, 4, 1, 128), 300, 100, 0, 0.0),  # rows 0-199, on the tensor cores in bf16
+        ("d64_causal", (4, 16, 4, 64), 1000, 1000, 0, 0.0),
         ("recurrentgemma_d256", (4, 16, 1, 256), 4096, 4096, 2048, 0.0),  # its local-attention prefill
+        ("ragged_d256", (2, 16, 1, 256), 1500, 1500, 700, 0.0),
     ]
     cases = [(name if dt == "bfloat16" else name + "_fp32", dt, *rest) for dt in DTYPES for name, *rest in shapes]
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -207,22 +225,31 @@ def flash_phase(record: dict) -> None:
         ms = time_ms(lambda: flash_attention_fwd(q, k, v, **kw), iters=10)
         plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, **kw), iters=5)
 
+        # Yardsticks only: SDPA with the mask as a tensor, and, where the mask is
+        # exactly causal over S == T, SDPA's is_causal call (which can reach its
+        # flash backend; the masked call cannot); library_ms is the faster.
         qpos = torch.arange(S, device="cuda")[:, None] + (T - S)
         kpos = torch.arange(T, device="cuda")[None, :]
         mask = kpos <= qpos
         if window:
             mask &= kpos > qpos - window
-        library_ms = None if cap else time_ms(
+        library_masked_ms = None if cap else time_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True), iters=5)
+        library_causal_ms = time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), iters=5) \
+            if S == T and not window and not cap else None
+        library_ms = min((t for t in (library_masked_ms, library_causal_ms) if t is not None), default=None)
 
         isz = torch.finfo(dt).bits // 8
         pairs = int(mask.sum().item())
         moved = (2 * B * H * S * D + 2 * B * KV * T * D) * isz
         flops = 4 * B * H * pairs * D
         bound_ms, bound_by = bound(moved, flops, dt_name)
-        row = dict(case=name, dtype=dt_name, B=B, H=H, KV=KV, D=D, S=S, T=T, window=window, softcap=cap,
-                   max_abs_err=err, tol=TOL[dt_name], ok=ok, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        row = dict(case=name, dtype=dt_name, path=flash_path(dt, D), B=B, H=H, KV=KV, D=D, S=S, T=T,
+                   window=window, softcap=cap, max_abs_err=err, tol=TOL[dt_name], ok=ok, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, library_masked_ms=library_masked_ms,
+                   library_causal_ms=library_causal_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   tflops=flops / ms / 1e9)
         emit("flash", **row)
         if not ok:
             raise AssertionError(f"flash {name}: not within rtol=atol={TOL[dt_name]} (max abs err {err})")
@@ -356,19 +383,21 @@ def serve_phase(record: dict, out_dir: Path | None) -> None:
     ops.reset_launches()
     out, prefill_s, decode_s, caches = tiered_serve_loop(
         model, cfg, params, prompts, tokens, window=window, page=page)
-    launches = ops.launches()
+    launches, paths = ops.launches(), ops.flash_path_launches()
     st = tiered_cache_stats(caches)
     row = dict(arch=cfg.name, layers=layers, batch=B, prompt_len=prompt_len,
                tokens=tokens, kv_window=window, kv_page=page, init_s=init_s, prefill_s=prefill_s,
                prefill_tok_per_s=B * prompt_len / prefill_s, decode_s=decode_s,
                decode_tok_per_s=B * tokens / decode_s, hot_fraction=st["hot_fraction"],
                pages_staged=st["pages_staged"], h2d_bytes_per_step=st["bytes_staged"] / tokens,
-               d2h_flushes=st["d2h_flushes"], launches=launches,
+               d2h_flushes=st["d2h_flushes"], launches=launches, flash_paths=paths,
                peak_device_bytes=torch.cuda.max_memory_allocated())
     emit("serve", **row)
     want = {"tiered_decode": layers * tokens, "flash_attention": layers, "rglru": 0, "mlstm": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
+    if paths != {"tensor_core": layers, "cuda_core": 0}:
+        raise AssertionError(f"bf16 flash launches off the tensor-core path: {paths}")
     if not st["hot_fraction"] < 1.0 or st["pages_staged"] <= 0:
         raise AssertionError(f"cold tier not exercised: {st}")
     if tuple(out.shape) != (B, tokens + 1) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
@@ -482,12 +511,12 @@ def recurrent_serve_phase(record: dict, out_dir: Path | None, arch: str, B: int,
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     out, prefill_s, decode_s, caches = dense_serve_loop(model, cfg, params, prompts, tokens)
-    launches = ops.launches()
+    launches, paths = ops.launches(), ops.flash_path_launches()
     kinds = [spec.mixer for spec in model.prefix]
     row = dict(arch=cfg.name, layers=cfg.n_layers, mixers={k: kinds.count(k) for k in sorted(set(kinds))},
                batch=B, prompt_len=prompt_len, tokens=tokens, init_s=init_s, prefill_s=prefill_s,
                prefill_tok_per_s=B * prompt_len / prefill_s, decode_s=decode_s,
-               decode_tok_per_s=B * tokens / decode_s, launches=launches,
+               decode_tok_per_s=B * tokens / decode_s, launches=launches, flash_paths=paths,
                cache_device_bytes=sum(t.numel() * t.element_size() for c in caches.values()
                                       for t in c.values() if torch.is_tensor(t)),
                peak_device_bytes=torch.cuda.max_memory_allocated())
@@ -496,6 +525,8 @@ def recurrent_serve_phase(record: dict, out_dir: Path | None, arch: str, B: int,
             "mlstm": kinds.count("mlstm")}
     if launches != want:
         raise AssertionError(f"{phase}: launch counts {launches} != {want}")
+    if paths != {"tensor_core": want["flash_attention"], "cuda_core": 0}:
+        raise AssertionError(f"{phase}: bf16 flash launches off the tensor-core path: {paths}")
     if tuple(out.shape) != (B, tokens + 1) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
         raise AssertionError(f"{phase}: bad generated tokens: shape {tuple(out.shape)}")
     record[phase] = row
@@ -581,11 +612,15 @@ def kernels_line(record: dict) -> dict:
         rows = record[phase]
         main = rows[0]
         by_phase = {p: record[p]["launches"][name] for p in SERVE_PHASES if record[p]["launches"][name]}
-        out.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                        launches=sum(by_phase.values()), launches_by_phase=by_phase,
-                        max_abs_err=max(r["max_abs_err"] for r in rows),
-                        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-                        bound_by=main["bound_by"], library_ms=main["library_ms"]))
+        entry = dict(name=name, route="cuda", source=source, replaces=replaces,
+                     launches=sum(by_phase.values()), launches_by_phase=by_phase,
+                     max_abs_err=max(r["max_abs_err"] for r in rows),
+                     ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                     bound_by=main["bound_by"], library_ms=main["library_ms"])
+        if name == "flash_attention":
+            entry.update(path=main["path"], library_masked_ms=main["library_masked_ms"],
+                         tensor_core_launches=sum(record[p]["flash_paths"]["tensor_core"] for p in SERVE_PHASES))
+        out.append(entry)
     return {"kernels": out}
 
 

@@ -2,13 +2,20 @@
 ``csrc/flash_attention.cu``, the port of ``repro/kernels/flash_attention.py``.
 
 Causal (right-aligned when T > S), sliding-window and softcapped attention
-with GQA.  One block per (b, h, 32-row query tile) walks the key tiles its
-rows can see, with the online softmax state in fp32 registers; fully
-masked key tiles are skipped and ragged S/T edges are masked in the kernel.
-A row with no valid key gives the mean of v, as the reference does.
-Forward only.
+with GQA; fully masked key tiles are skipped and ragged S/T edges are masked
+in the kernel.  A row with no valid key gives the mean of v, as the
+reference does.  Forward only.
 
-The plain version is ``ref.attention_ref``; ``ops`` chooses.
+Two kernels, chosen by ``flash_path`` from (dtype, D) alone:
+
+* ``"tensor_core"`` — bf16 at D in ``TENSOR_CORE_HEAD_DIMS``: 128-row query
+  tiles, K/V tiles through a TMA-fed ring, both products by ``wgmma``;
+* ``"cuda_core"`` — fp32 (held to 2e-5, which TF32 products cannot) and
+  bf16 at the small head dims: 32-row query tiles, fp32 products on the
+  CUDA cores.
+
+A launch that fails raises; nothing retries on the other path.  The plain
+version is ``ref.attention_ref``; ``ops`` chooses.
 """
 
 from __future__ import annotations
@@ -17,6 +24,12 @@ import torch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
+TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
+
+
+def flash_path(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel takes operands of ``dtype`` and head dim ``head_dim``."""
+    return "tensor_core" if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS else "cuda_core"
 
 
 def flash_attention_fwd(
@@ -27,7 +40,8 @@ def flash_attention_fwd(
     window: int = 0,
     logit_softcap: float = 0.0,
 ) -> torch.Tensor:
-    """Launch the kernel on PyTorch's current stream; no synchronisation."""
+    """Launch the kernel of ``flash_path`` on PyTorch's current stream; no
+    synchronisation."""
     from repro_torch.kernels.ops import check, load
 
     b, h, s, d = q.shape
@@ -37,18 +51,20 @@ def flash_attention_fwd(
         raise ValueError("flash kernel: every operand must be on one CUDA device")
     if not all(x.dtype == q.dtype for x in tensors) or q.dtype not in _DTYPES:
         raise TypeError(f"flash kernel takes float32 or bfloat16 operands of one dtype, got {[x.dtype for x in tensors]}")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("flash kernel takes contiguous operands")
+    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0 for x in tensors):
+        raise ValueError("flash kernel takes contiguous operands on 16-byte boundaries")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash kernel built for D in {HEAD_DIMS}, got {d}")
     if kv == 0 or h % kv or k.shape[0] != b or k.shape[3] != d or v.shape != k.shape or s == 0:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     out = torch.empty_like(q)
     lib = load("flash_attention")
-    err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kv, s, t, d,
-        int(bool(causal)), int(window), float(logit_softcap), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kv, s, t, d,
+            int(bool(causal)), int(window), float(logit_softcap))
+    if flash_path(q.dtype, d) == "tensor_core":
+        err = lib.flash_attention_wgmma_launch(*args, stream)
+    else:
+        err = lib.flash_attention_launch(*args, _DTYPES[q.dtype], stream)
     check(err, "flash_attention")
     return out

@@ -87,18 +87,17 @@ def build(names=SOURCES) -> dict[str, Path]:
 def _bind(lib: ctypes.CDLL, name: str) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     if name == "tiered_decode":
-        fn = lib.tiered_decode_launch
-        fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P]
+        fns = [(lib.tiered_decode_launch, [P] * 7 + [I] * 11 + [P])]
     elif name == "flash_attention":
-        fn = lib.flash_attention_launch
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, I, P]
+        args = [P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float]
+        fns = [(lib.flash_attention_launch, args + [I, P]), (lib.flash_attention_wgmma_launch, args + [P])]
     elif name == "rglru":
-        fn = lib.rglru_scan_launch
-        fn.argtypes = [P, P, P, I, I, I, I, P]
+        fns = [(lib.rglru_scan_launch, [P, P, P, I, I, I, I, P])]
     else:
-        fn = lib.mlstm_chunkwise_launch
-        fn.argtypes = [P] * 12 + [I, I, I, I, P]
-    fn.restype = I
+        fns = [(lib.mlstm_chunkwise_launch, [P] * 12 + [I, I, I, I, P])]
+    for fn, argtypes in fns:
+        fn.argtypes = argtypes
+        fn.restype = I
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -127,10 +126,11 @@ def flash_attention(
 ) -> torch.Tensor:
     """Tiled attention forward. q: (B,H,S,D); k,v: (B,KV,T,D) -> (B,H,S,D)."""
     if q.is_cuda:
-        from repro_torch.kernels.flash_attention import flash_attention_fwd
+        from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_path
 
         out = flash_attention_fwd(q, k, v, causal=causal, window=window, logit_softcap=logit_softcap)
         flash_attention.launches += 1
+        flash_attention.path_launches[flash_path(q.dtype, q.shape[-1])] += 1
         return out
     return ref.attention_ref(q, k, v, causal=causal, window=window, logit_softcap=logit_softcap)
 
@@ -202,10 +202,16 @@ KERNEL_OPS = {
 def reset_launches() -> None:
     for op in KERNEL_OPS.values():
         op.launches = 0
+    flash_attention.path_launches = {"tensor_core": 0, "cuda_core": 0}
 
 
 def launches() -> dict[str, int]:
     return {name: op.launches for name, op in KERNEL_OPS.items()}
+
+
+def flash_path_launches() -> dict[str, int]:
+    """The flash op's launches split by kernel (``flash_attention.flash_path``)."""
+    return dict(flash_attention.path_launches)
 
 
 reset_launches()

@@ -15,6 +15,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import flash_path
+from repro_torch.kernels.tiered_decode import tiered_decode_attention_fwd
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 # mLSTM in fp32: tests/test_kernels.py's 2e-4 (the chunkwise sums run in
@@ -40,7 +42,7 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda_device).manual_seed(0)
     rnd = lambda *s: torch.randn(s, generator=g, device=cuda_device).to(dt)
-    before = ops.launches()
+    before, paths_before = ops.launches(), ops.flash_path_launches()
     # (B, H, KV, S, T, D, window): ragged, T > S, window, fully masked rows
     # (T < S: rows 0-15 see no key and give the mean of v), and D = 256 MQA.
     flash_cases = [(2, 8, 2, 50, 50, 32, 0), (2, 8, 2, 24, 64, 32, 0), (2, 8, 2, 96, 96, 32, 16),
@@ -58,6 +60,70 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
     after = ops.launches()
     assert after["flash_attention"] - before["flash_attention"] == len(flash_cases)
     assert after["tiered_decode"] - before["tiered_decode"] == len(TIERED_CASES)
+    paths = ops.flash_path_launches()
+    on_tc = sum(flash_path(dt, c[5]) == "tensor_core" for c in flash_cases)
+    assert paths["tensor_core"] - paths_before["tensor_core"] == on_tc == (1 if dtype == "bfloat16" else 0)
+    assert paths["cuda_core"] - paths_before["cuda_core"] == len(flash_cases) - on_tc
+
+
+# (B, H, KV, S, T, window, softcap, causal): S and T not multiples of the
+# 128-row query tile or the 64/128-key tile; GQA 4; MQA with T > S; window;
+# softcap 30 and a strong softcap 2; rows without a key (T < S: rows
+# 0..122 see none and give the mean of v); non-causal.
+TC_FLASH_CASES = [(2, 8, 2, 200, 200, 0, 0.0, True), (1, 4, 1, 100, 300, 0, 0.0, True),
+                  (1, 4, 2, 300, 300, 70, 0.0, True), (1, 4, 4, 150, 150, 0, 30.0, True),
+                  (1, 4, 4, 150, 150, 0, 2.0, True), (1, 2, 2, 200, 77, 0, 0.0, True),
+                  (1, 2, 1, 130, 190, 0, 0.0, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_cuda_flash_tensor_core_matches_plain(cuda_device, d):
+    """bf16 at D = 64, 128, 256 takes the wgmma kernel: every masking rule,
+    ragged edges and the mean-of-v rows against ``ref.attention_ref``, and
+    the tensor-core path's own launch count beside the op's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda_device).to(torch.bfloat16)
+    assert flash_path(torch.bfloat16, d) == "tensor_core"
+    ops.reset_launches()
+    for b, h, kv, s, t, window, cap, causal in TC_FLASH_CASES:
+        q, k, v = rnd(b, h, s, d), rnd(b, kv, t, d), rnd(b, kv, t, d)
+        kw = dict(causal=causal, window=window, logit_softcap=cap)
+        got = ops.flash_attention(q, k, v, **kw)
+        torch.testing.assert_close(got, tref.attention_ref(q, k, v, **kw), **TOL["bfloat16"])
+    torch.cuda.synchronize()
+    assert ops.launches()["flash_attention"] == len(TC_FLASH_CASES)
+    assert ops.flash_path_launches() == {"tensor_core": len(TC_FLASH_CASES), "cuda_core": 0}
+
+
+# (hot_len, cold_len, newest, n_split) over hot 16 slots and cold capacity
+# 64: splits of a few keys; 8 splits of 5 keys (three splits see no key);
+# one split per key; no key at all over 4 splits.
+SPLIT_CASES = [(16, 40, 15, 4), (0, 40, 7, 3), (12, 0, 11, 5), (9, 48, 3, 7), (16, 64, 0, 2),
+               (3, 2, 1, 8), (4, 1, 2, 5), (0, 0, 0, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_tiered_split_matches_plain(cuda_device, dtype):
+    """The split tiered kernel against ``ref.tiered_ring_attention_ref`` at
+    forced split counts (empty splits, the all-empty case), and at the split
+    count the planner picks for this card over a 1088-key history."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda_device).to(dt)
+    for hot_len, cold_len, newest, n_split in SPLIT_CASES:
+        q, hk, hv, ck, cv = rnd(2, 8, 1, 32), rnd(2, 2, 16, 32), rnd(2, 2, 16, 32), rnd(2, 2, 64, 32), rnd(2, 2, 64, 32)
+        got = tiered_decode_attention_fwd(q, hk, hv, ck, cv, hot_len, cold_len, newest, n_split=n_split)
+        want = tref.tiered_ring_attention_ref(q, hk, hv, ck, cv, hot_len, cold_len, newest)
+        torch.testing.assert_close(got, want, **TOL[dtype])
+    q, hk, hv, ck, cv = rnd(2, 8, 1, 128), rnd(2, 2, 256, 128), rnd(2, 2, 256, 128), rnd(2, 2, 1024, 128), rnd(2, 2, 1024, 128)
+    before = ops.launches()["tiered_decode"]
+    got = ops.tiered_decode_attention(q, hk, hv, ck, cv, 192, 896, 63)
+    torch.testing.assert_close(got, tref.tiered_ring_attention_ref(q, hk, hv, ck, cv, 192, 896, 63), **TOL[dtype])
+    torch.cuda.synchronize()
+    assert ops.launches()["tiered_decode"] - before == 1  # two CUDA launches, one op
 
 
 @pytest.mark.cuda

@@ -18,6 +18,9 @@ from repro.kernels import ref as jref
 from repro.kernels import tiered_decode_attention as jax_tiered
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import TENSOR_CORE_HEAD_DIMS, flash_path
+from repro_torch.kernels.tiered_decode import (blocks_per_sm, plan_splits, split_merge_plain, split_ranges,
+                                               valid_key_rows)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -75,12 +78,12 @@ def test_attention_plain_matches_jax_flash_kernel(case):
     assert_close(got, want, dtype)
 
 
-def test_attention_fully_masked_rows_give_zero():
-    """Causal with T < S leaves the first S - T rows without a key.  The port
-    once gave 0 there (hence the name); it now gives what the JAX oracle and
-    the Pallas kernel give, the mean of v over all T keys (a softmax of T
-    equal -1e30 scores), on every row of the input that exposed the
-    difference: q (1,2,40,32), k/v (1,2,24,32), fp32, seed 2."""
+def test_attention_fully_masked_rows_give_mean_of_v():
+    """Causal with T < S leaves the first S - T rows without a key.  They
+    give what the JAX oracle and the Pallas kernel give, the mean of v over
+    all T keys (a softmax of T equal -1e30 scores), on every row of the
+    input that once exposed a difference: q (1,2,40,32), k/v (1,2,24,32),
+    fp32, seed 2."""
     rng = np.random.default_rng(2)
     (qj, qt), (kj, kt), (vj, vt) = (pair(rng, sh) for sh in ((1, 2, 40, 32), (1, 2, 24, 32), (1, 2, 24, 32)))
     got = ops.flash_attention(qt, kt, vt, causal=True)
@@ -88,6 +91,17 @@ def test_attention_fully_masked_rows_give_zero():
     assert_close(got, jax_flash(qj, kj, vj, causal=True, block_q=32, block_k=32, interpret=True), "float32")
     assert_close(got[:, :, :16], np.broadcast_to(np.asarray(vj).mean(axis=2, keepdims=True), (1, 2, 16, 32)),
                  "float32")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_flash_path_is_a_function_of_dtype_and_head_dim(dtype, d):
+    """bf16 at D = 64, 128, 256 takes the tensor-core kernel; fp32 (held to
+    2e-5, which TF32 products cannot hold) and the small head dims take the
+    CUDA-core kernel."""
+    want = "tensor_core" if dtype == torch.bfloat16 and d in (64, 128, 256) else "cuda_core"
+    assert flash_path(dtype, d) == want
+    assert TENSOR_CORE_HEAD_DIMS == (64, 128, 256)
 
 
 # (hot_len, cold_len, newest): hot 16 slots, cold capacity 64
@@ -171,3 +185,78 @@ def test_kernel_launchers_reject_cpu_tensors():
         flash_attention_fwd(x, x, x)
     with pytest.raises(ValueError, match="CUDA"):
         tiered_decode_attention_fwd(x[:, :, :1], x, x, x, x, 1, 1, 0)
+
+
+@pytest.mark.parametrize("n_keys,rows,want", [
+    (1088, 32, 8),    # qwen3-8b serving, batch 4: 32 rows x 8 = 256 <= 2 x 132 blocks of 136 keys
+    (8192, 32, 8),    # the long-history case: 8 splits of 1024 keys
+    (1088, 4, 17),    # few rows: capped at 64 keys a split
+    (100, 32, 1),     # too few keys for two splits of 64
+    (63, 1, 1),
+    (0, 32, 1),       # no key: one split, which sees none
+    (5000, 300, 1),   # more rows than one wave holds: one block a row
+])
+def test_tiered_split_planner(n_keys, rows, want):
+    n_split = plan_splits(n_keys, rows, sms=132)
+    assert n_split == want
+    assert n_split >= 1 and (n_split == 1 or n_keys // n_split >= 64)
+    assert rows * n_split <= 2 * 132 or n_split == 1  # one wave
+    # G = 8 holds one block an SM: half the splits where the SMs bound them
+    assert plan_splits(n_keys, rows, sms=132, per_sm=blocks_per_sm(8)) == max(1, min(132 // rows, n_keys // 64))
+    assert blocks_per_sm(4) == 2 and blocks_per_sm(1) == 2
+    ranges = split_ranges(n_keys, n_split)
+    covered = [k for k0, k1 in ranges for k in range(k0, k1)]
+    assert covered == list(range(n_keys))  # every key exactly once, in order
+
+
+@pytest.mark.parametrize("n_keys,n_split", [(0, 1), (0, 4), (5, 8), (80, 7), (1088, 9)])
+def test_tiered_split_ranges_cover_keys_once(n_keys, n_split):
+    ranges = split_ranges(n_keys, n_split)
+    assert len(ranges) == n_split
+    assert [k for k0, k1 in ranges for k in range(k0, k1)] == list(range(n_keys))
+    assert max(k1 - k0 for k0, k1 in ranges) - min(k1 - k0 for k0, k1 in ranges) <= 1
+
+
+def test_tiered_valid_key_rows_are_the_valid_slots_oldest_first():
+    """Cold positions first, then the ring's valid arc from its oldest slot."""
+    assert valid_key_rows(4, 3, 1, 8, 10).tolist() == [0, 1, 2, 10 + 6, 10 + 7, 10 + 0, 10 + 1]
+    assert valid_key_rows(0, 2, 5, 8, 10).tolist() == [0, 1]
+    assert valid_key_rows(8, 0, 7, 8, 10).tolist() == [10 + j for j in range(8)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_split", [1, 3, 8, 100])
+@pytest.mark.parametrize("case", sorted(TIERED_CASES))
+def test_tiered_split_merge_matches_jax(case, n_split, dtype):
+    """The kernel's split-then-merge arithmetic (plain PyTorch) against the
+    port's oracle, the JAX ring oracle and the Pallas kernel in interpret
+    mode; 100 splits leave most splits without a key."""
+    hot_len, cold_len, newest = TIERED_CASES[case]
+    rng = np.random.default_rng(6)
+    (qj, qt), (hkj, hkt), (hvj, hvt), (ckj, ckt), (cvj, cvt) = (
+        pair(rng, sh, dtype) for sh in ((2, 8, 1, 32), (2, 2, 16, 32), (2, 2, 16, 32), (2, 2, 64, 32), (2, 2, 64, 32)))
+    got = split_merge_plain(qt, hkt, hvt, ckt, cvt, hot_len, cold_len, newest, n_split)
+    assert_close(got, jref.tiered_ring_attention_ref(qj, hkj, hvj, ckj, cvj, hot_len, cold_len, newest), dtype)
+    assert_close(got, jax_tiered(qj, hkj, hvj, ckj, cvj, hot_len=hot_len, cold_len=cold_len,
+                                 ring_newest=newest, block_k=32, interpret=True), dtype)
+    want = tref.tiered_ring_attention_ref(qt, hkt, hvt, ckt, cvt, hot_len, cold_len, newest)
+    assert_close(got, want.float().numpy(), dtype)
+
+
+@pytest.mark.parametrize("hot_len,cold_len,newest,n_split", [
+    (0, 40, 7, 4),     # hot_len = 0: every split is cold
+    (16, 10, 3, 4),    # cold_len shorter than one split: a split straddles the tiers
+    (3, 2, 1, 8),      # three splits see no key
+    (0, 0, 0, 4),      # no key at all: 0
+])
+def test_tiered_split_merge_edge_splits(hot_len, cold_len, newest, n_split):
+    rng = np.random.default_rng(7)
+    (qj, qt), (hkj, hkt), (hvj, hvt), (ckj, ckt), (cvj, cvt) = (
+        pair(rng, sh) for sh in ((1, 4, 1, 32), (1, 2, 16, 32), (1, 2, 16, 32), (1, 2, 64, 32), (1, 2, 64, 32)))
+    got = split_merge_plain(qt, hkt, hvt, ckt, cvt, hot_len, cold_len, newest, n_split)
+    # The Pallas kernel (the JAX ring oracle softmaxes -1e30 scores when no key is valid)
+    assert_close(got, jax_tiered(qj, hkj, hvj, ckj, cvj, hot_len=hot_len, cold_len=cold_len,
+                                 ring_newest=newest, block_k=32, interpret=True), "float32")
+    assert torch.isfinite(got).all()
+    if hot_len + cold_len == 0:
+        assert not got.any()
