@@ -10,9 +10,15 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                  src/repro_torch/csrc, one nvcc per source, all started together
 3. tiered_decode the decode kernel against its plain version at the serving
                  shape (B=4, H=32, KV=8, D=128, W=256, C=1024), at the edge
-                 cases and at a long history (cold 7936 of C=8192), each in
-                 bf16 and again in fp32; the split count, error, the whole
-                 op's ms (both launches), plain / SDPA ms and the bound
+                 cases and at a long history (cold 7936 of C=8192), then at the
+                 other configs' groups and head dims (H/KV/D 24/2/128, 48/8/128,
+                 14/2/64, 4/1/256, 16/1/256, 5/1/128) over both tiers, no key,
+                 hot only, cold only and a wrapped ring, each in bf16 and again
+                 in fp32; the split count, head tile, error, the whole op's ms
+                 (both launches), plain / SDPA ms and the bound; then a sweep
+                 of every group 1..16 and head dim 16..256 the kernel takes
+                 (20 shapes at B=2, W=16, C=64, each at six edge cases, in
+                 bf16 and fp32), error only
 4. flash         the flash kernel against its plain version at S=T=1024 causal,
                  T > S, window 64, softcap 30, ragged S=200, rows with no key
                  (T < S, at D=32 and D=128), D=64, recurrentgemma's D=256 MQA
@@ -32,6 +38,15 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                  1024, 64 new tokens, kv window 256, page 128), then profiled
 8. serve_check   2 qwen3 layers at full width in fp32: greedy tokens through the
                  kernels equal tokens through the plain versions
+8b. serve_store  the serve phase's qwen3-8b run again with the store level
+                 (``repro_torch.core.TwoLevelStore`` under build/): every
+                 completed page of every layer persisted once, the same launch
+                 counts, tokens and host tiers as a run without the store; then
+                 every layer evicted to the store and resumed bit-identical and
+                 8 more greedy tokens, and every layer's tiers after them, equal
+                 to those of the run without the round trip; then one layer's
+                 host tier lost and restored from the
+                 store; persist MB/s, evict / resume / restore s, decode tok/s
 9. serve_recurrentgemma  recurrentgemma-9b, 38 layers, bf16, through
                  ``steps.dense_serve_loop`` (batch 4, prompt 4096, 64 new tokens),
                  then profiled
@@ -117,29 +132,38 @@ def tiered_decode_phase(record: dict) -> None:
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.ops import load
-    from repro_torch.kernels.tiered_decode import _DTYPES, blocks_per_sm, plan_splits, tiered_decode_attention_fwd
+    from repro_torch.kernels.tiered_decode import (_DTYPES, blocks_per_sm, head_tile, plan_splits,
+                                                   tiered_decode_attention_fwd)
 
-    B, H, KV, D, W = 4, 32, 8, 128, 256
+    B, W, qwen = 4, 256, (32, 8, 128)  # qwen3-8b's H, KV, D
     # Serving at prompt 1024 + 64 tokens with page 128 keeps cold_len = 896 and
     # hot_len in [129, 192]; the last step is the "serve" case.  "long_history"
     # is a 8192-token history (cold 7936 in an 8192-row buffer, hot 256), where
     # the split has the most keys to spread.  Each case runs in bf16 (the
     # serving dtype) and again in fp32, where rtol = atol = 2e-5 catches a mask
     # off by one key (a weight near 1/1000 of the output).
-    shapes = [  # name, hot_len, cold_len, newest, C
-        ("serve", 192, 896, 63, 1024),
-        ("hot_len=0", 0, 896, 63, 1024),
-        ("cold_len=0", 200, 0, 199, 1024),
-        ("ring_wrap_full", 256, 512, 100, 1024),
-        ("cold_len_ragged", 150, 700, 20, 1024),
-        ("long_history", 256, 7936, 255, 8192),
+    shapes = [  # name, (H, KV, D), hot_len, cold_len, newest, C
+        ("serve", qwen, 192, 896, 63, 1024),
+        ("hot_len=0", qwen, 0, 896, 63, 1024),
+        ("cold_len=0", qwen, 200, 0, 199, 1024),
+        ("ring_wrap_full", qwen, 256, 512, 100, 1024),
+        ("cold_len_ragged", qwen, 150, 700, 20, 1024),
+        ("long_history", qwen, 256, 7936, 255, 8192),
     ]
+    # The groups and head dims of the other configs' GQA layers, and an odd
+    # group (a padded head tile): starcoder2_3b, grok_1_314b, internvl2_1b,
+    # gemma3_1b's global layers, recurrentgemma_9b's local attention.
+    for arch, hkd in (("starcoder2", (24, 2, 128)), ("grok1", (48, 8, 128)), ("internvl2", (14, 2, 64)),
+                      ("gemma3", (4, 1, 256)), ("h16_kv1_d256", (16, 1, 256)), ("h5_kv1", (5, 1, 128))):
+        shapes += [(f"{arch}_both_tiers", hkd, 192, 896, 63, 1024), (f"{arch}_no_key", hkd, 0, 0, 0, 1024),
+                   (f"{arch}_hot_only", hkd, 200, 0, 199, 1024), (f"{arch}_cold_only", hkd, 0, 896, 63, 1024),
+                   (f"{arch}_ring_wrap", hkd, 256, 512, 100, 1024)]
     cases = [(name if dt == "bfloat16" else name + "_fp32", dt, *rest) for dt in DTYPES for name, *rest in shapes]
     lib = load("tiered_decode")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(0)
     copies = 4  # rotate inputs so the K/V of one launch is not L2-resident for the next
-    for name, dt_name, hot_len, cold_len, newest, C in cases:
+    for name, dt_name, (H, KV, D), hot_len, cold_len, newest, C in cases:
         dt = getattr(torch, dt_name)
         sets = []
         for _ in range(copies):
@@ -152,13 +176,14 @@ def tiered_decode_phase(record: dict) -> None:
         err, ok = within_tol(got, want, dt_name)
 
         # The whole op, both launches (one C call), on pre-made outputs and scratch.
-        n_split = plan_splits(hot_len + cold_len, B * KV, sms, blocks_per_sm(H // KV))
+        gt, tiles = head_tile(H // KV)
+        n_split = plan_splits(hot_len + cold_len, B * KV * tiles, sms, blocks_per_sm(H // KV))
         outs = [torch.empty_like(s[0]) for s in sets]
         scratch = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32, device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
         raw = [(s[0].data_ptr(), s[1].data_ptr(), s[2].data_ptr(), s[3].data_ptr(), s[4].data_ptr(),
                 o.data_ptr(), scratch.data_ptr(), B, H, KV, W, C, D, hot_len, cold_len, newest, n_split,
-                _DTYPES[dt], stream)
+                gt, _DTYPES[dt], stream)
                for s, o in zip(sets, outs)]
         it = iter(range(1 << 30))
         ms = time_ms(lambda: lib.tiered_decode_launch(*raw[next(it) % copies]), iters=40)
@@ -172,19 +197,82 @@ def tiered_decode_phase(record: dict) -> None:
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             *lib_in[next(it) % copies], attn_mask=mask, enable_gqa=True)) if (hot_len + cold_len) else None
 
+        # Each K/V row is counted once.  With tiles > 1 the kernel reads it
+        # once per head tile, but the tiles of a (row, split) are neighbours
+        # in the grid and resident in the same wave, so the re-reads come
+        # from L2 (kv_reads says how many there are).
         isz = torch.finfo(dt).bits // 8
         n_keys = hot_len + cold_len
         moved = 2 * B * KV * n_keys * D * isz + 2 * B * H * D * isz
         flops = 4 * B * H * n_keys * D
         bound_ms, bound_by = bound(moved, flops, dt_name)
-        row = dict(case=name, dtype=dt_name, hot_len=hot_len, cold_len=cold_len, newest=newest, C=C,
-                   n_split=n_split, blocks=B * KV * n_split, max_abs_err=err, tol=TOL[dt_name], ok=ok, ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        row = dict(case=name, dtype=dt_name, H=H, KV=KV, D=D, G=H // KV, head_tile=gt, kv_reads=tiles,
+                   hot_len=hot_len, cold_len=cold_len, newest=newest, C=C,
+                   n_split=n_split, blocks=B * KV * tiles * n_split, max_abs_err=err, tol=TOL[dt_name], ok=ok,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         emit("tiered_decode", **row)
         if not ok:
             raise AssertionError(f"tiered_decode {name}: not within rtol=atol={TOL[dt_name]} (max abs err {err})")
+        if row["blocks"] > sms * blocks_per_sm(H // KV):
+            raise AssertionError(f"tiered_decode {name}: {row['blocks']} pass-1 blocks are more than one wave")
         record.setdefault("tiered_decode", []).append(row)
         del sets, lib_in, outs, scratch
+    tiered_sweep(record, sms)
+
+
+# Every group 1..16 and head dim 16..256 the kernel is built for, as
+# tests/test_torch_cuda.py's sweep: (H, KV, D) ...
+TIERED_SWEEP_SHAPES = [(1, 1, 16), (2, 1, 32), (3, 1, 64), (8, 2, 128), (5, 1, 128), (12, 2, 64), (14, 2, 64),
+                       (7, 1, 256), (8, 1, 32), (9, 1, 128), (20, 2, 16), (11, 1, 64), (24, 2, 128), (48, 8, 128),
+                       (13, 1, 32), (28, 2, 256), (15, 1, 64), (16, 1, 256), (4, 1, 256), (6, 1, 256)]
+# ... each at (hot_len, cold_len, newest, n_split or None for the planner's)
+# over hot 16 slots and cold capacity 64: both tiers and a wrapped ring, no
+# key, hot only, cold only, and forced splits, some with no key.
+TIERED_SWEEP_CASES = [(16, 40, 15, None), (0, 0, 0, None), (12, 0, 11, None), (0, 40, 7, None), (16, 64, 5, 3),
+                      (3, 2, 1, 8)]
+
+
+def tiered_sweep(record: dict, sms: int) -> None:
+    """The tiered kernel at every (G, D) it takes against its plain version,
+    one row per shape and dtype with the largest error over its cases; the
+    planner's launches must be one wave."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.tiered_decode import (GROUPS, HEAD_DIMS, blocks_per_sm, head_tile, plan_splits,
+                                                   tiered_decode_attention_fwd)
+
+    B, W, C = 2, 16, 64
+    if {(h // kv) for h, kv, _ in TIERED_SWEEP_SHAPES} != set(GROUPS) or \
+            {d for *_, d in TIERED_SWEEP_SHAPES} != set(HEAD_DIMS):
+        raise AssertionError("tiered sweep: the shapes do not cover the kernel's groups and head dims")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for dt_name in DTYPES:
+        dt = getattr(torch, dt_name)
+        for H, KV, D in TIERED_SWEEP_SHAPES:
+            rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+            q, hk, hv, ck, cv = rnd(B, H, 1, D), rnd(B, KV, W, D), rnd(B, KV, W, D), rnd(B, KV, C, D), rnd(B, KV, C, D)
+            gt, tiles = head_tile(H // KV)
+            worst, splits = 0.0, []
+            for hot_len, cold_len, newest, n_split in TIERED_SWEEP_CASES:
+                got = tiered_decode_attention_fwd(q, hk, hv, ck, cv, hot_len, cold_len, newest, n_split=n_split)
+                want = ref.tiered_ring_attention_ref(q, hk, hv, ck, cv, hot_len, cold_len, newest)
+                err, ok = within_tol(got, want, dt_name)
+                if not ok:
+                    raise AssertionError(f"tiered sweep H={H} KV={KV} D={D} {dt_name} "
+                                         f"lens={(hot_len, cold_len, newest, n_split)}: max abs err {err}")
+                worst = max(worst, err)
+                planned = n_split is None
+                if planned:
+                    n_split = plan_splits(hot_len + cold_len, B * KV * tiles, sms, blocks_per_sm(H // KV))
+                    if B * KV * tiles * n_split > sms * blocks_per_sm(H // KV):
+                        raise AssertionError(f"tiered sweep H={H} KV={KV} D={D}: more than one wave")
+                splits.append(n_split)
+            row = dict(dtype=dt_name, H=H, KV=KV, D=D, G=H // KV, head_tile=gt, kv_reads=tiles,
+                       cases=len(TIERED_SWEEP_CASES), n_splits=splits, max_abs_err=worst, tol=TOL[dt_name])
+            emit("tiered_decode_sweep", **row)
+            record.setdefault("tiered_decode_sweep", []).append(row)
+    torch.cuda.synchronize()
 
 
 # ------------------------------------------------------------------------ flash
@@ -482,6 +570,147 @@ def serve_check_phase(record: dict) -> None:
     record["serve_check"] = same
 
 
+def serve_store_phase(record: dict) -> None:
+    """The serve phase's qwen3-8b run with the store level under its KV cache
+    (a ``TwoLevelStore`` under build/), beside the same run without it."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config, make_model
+    from repro_torch.core import TwoLevelStore
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import init_params
+    from repro_torch.launch.steps import make_serve_step, tiered_cache_stats, tiered_serve_loop
+
+    B, prompt_len, tokens, window, page, more = 4, 1024, 64, 256, 128, 8
+    cfg = dataclasses.replace(get_config("qwen3_8b"), attn_impl="flash", scan_layers=False)
+    layers = cfg.n_layers
+    model = make_model(cfg)
+    params = init_params(model, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab, (B, prompt_len), generator=gen, device="cuda")
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="serve_store_", dir=ROOT / "build")
+    store = TwoLevelStore(root)
+    try:
+        ops.reset_launches()
+        room = prompt_len + tokens + more + 1  # the 8 tokens decoded after the round trip
+        out, prefill_s, decode_s, caches = tiered_serve_loop(
+            model, cfg, params, prompts, tokens, window=window, page=page, store=store, max_len=room)
+        launches, paths = ops.launches(), ops.flash_path_launches()
+        t0 = time.perf_counter()
+        store.drain()  # the write-back of the persisted pages reaches the file tier
+        drain_s = time.perf_counter() - t0
+        want = {"tiered_decode": layers * tokens, "flash_attention": layers, "rglru": 0, "mlstm": 0}
+        if launches != want or paths != {"tensor_core": layers, "cuda_core": 0}:
+            raise AssertionError(f"serve_store: launch counts {launches} {paths} != {want}")
+        ref_out, _, ref_decode_s, ref_caches = tiered_serve_loop(
+            model, cfg, params, prompts, tokens, window=window, page=page, max_len=room)  # the same run, no store
+
+        tiered = [caches[f"prefix_{i}"] for i in range(layers)]
+        refs = [ref_caches[f"prefix_{i}"] for i in range(layers)]
+        for c in tiered + refs:
+            c.flush_host()  # the pending tail to the host tier; pages already persisted go once
+        st = tiered_cache_stats(caches)
+        length = tiered[0].length
+        page_bytes = 2 * B * cfg.n_kv_heads * page * cfg.resolved_head_dim * 2
+        pages_want = layers * (length // page)
+        missing = [(i, p) for i in range(layers) for p in range(length // page)
+                   if not store.exists(f"serving/kv/prefix_{i}/page_{p:06d}")]
+        if st["pages_persisted"] != pages_want or st["bytes_persisted"] != pages_want * page_bytes or missing:
+            raise AssertionError(f"serve_store: persisted {st['pages_persisted']} pages / {st['bytes_persisted']} "
+                                 f"bytes, want {pages_want} / {pages_want * page_bytes}; missing {missing[:4]}")
+        differ = [i for i, (c, r) in enumerate(zip(tiered, refs)) if not (
+            torch.equal(c.cold_k[:, :, :length], r.cold_k[:, :, :length]) and
+            torch.equal(c.cold_v[:, :, :length], r.cold_v[:, :, :length]))]
+        if not torch.equal(out, ref_out) or differ:
+            raise AssertionError(f"serve_store: tokens equal {torch.equal(out, ref_out)}, host tiers of layers "
+                                 f"{differ} differ from the run without the store")
+
+        # Evict every layer to the store, then resume: bit-identical tiers, and
+        # 8 more greedy tokens equal to those of the run without the round trip.
+        t0 = time.perf_counter()
+        for c in tiered:
+            c.evict_to_store()
+        evict_s = time.perf_counter() - t0
+        parked = sum(c.device_bytes() + c.host_bytes() for c in tiered)
+        t0 = time.perf_counter()
+        for c in tiered:
+            c.resume_from_store()
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        resumed = all(c.length == length and torch.equal(c.cold_k[:, :, :length], r.cold_k[:, :, :length]) and
+                      torch.equal(c.cold_v[:, :, :length], r.cold_v[:, :, :length]) and
+                      torch.equal(c.hot_k, r.hot_k) and torch.equal(c.hot_v, r.hot_v) and c.cold_k.is_pinned()
+                      for c, r in zip(tiered, refs))
+        if parked != 0 or not resumed:
+            raise AssertionError(f"serve_store: {parked} bytes held while parked, or resume not bit-identical")
+        step = make_serve_step(model, cfg)
+        tok, ref_tok = out[:, -1:], ref_out[:, -1:]
+        extra, ref_extra = [], []
+        for _ in range(more):
+            tok, caches = step(params, tok, caches)
+            ref_tok, ref_caches = step(params, ref_tok, ref_caches)
+            extra.append(tok)
+            ref_extra.append(ref_tok)
+        extra, ref_extra = torch.cat(extra, 1), torch.cat(ref_extra, 1)
+        if not torch.equal(extra, ref_extra):
+            raise AssertionError(f"serve_store: tokens after resume {extra.tolist()} != {ref_extra.tolist()}")
+        # With random weights every greedy token is the same, so the tiers are
+        # the check: layer i + 1's K/V of those 8 steps come from layer i's
+        # attention over the resumed ring and the re-staged host tier.
+        after = [caches[f"prefix_{i}"] for i in range(layers)]
+        refs = [ref_caches[f"prefix_{i}"] for i in range(layers)]
+        for c in after + refs:
+            c.flush_host()
+        grown = after[0].length
+        differ = [i for i, (c, r) in enumerate(zip(after, refs)) if not (
+            c.length == r.length == grown and
+            torch.equal(c.cold_k[:, :, :grown], r.cold_k[:, :, :grown]) and
+            torch.equal(c.cold_v[:, :, :grown], r.cold_v[:, :, :grown]) and
+            torch.equal(c.hot_k, r.hot_k) and torch.equal(c.hot_v, r.hot_v))]
+        if grown != length + more or differ:
+            raise AssertionError(f"serve_store: after resume and {more} steps ({grown} tokens), the tiers of "
+                                 f"layers {differ} differ from the run without the round trip")
+        tiered = after
+
+        # Host-memory loss of one layer: restore its durable prefix from the store.
+        c = tiered[0]
+        c.flush_host()
+        durable = c.length // page * page  # the completed pages, all persisted
+        before_k, before_v = c.cold_k[:, :, :durable].clone(), c.cold_v[:, :, :durable].clone()
+        c.cold_k.zero_()
+        c.cold_v.zero_()
+        t0 = time.perf_counter()
+        restored = c.restore_cold_from_store()
+        restore_s = time.perf_counter() - t0
+        if restored != durable or not (torch.equal(c.cold_k[:, :, :durable], before_k) and
+                                       torch.equal(c.cold_v[:, :, :durable], before_v)):
+            raise AssertionError(f"serve_store: restored {restored} tokens of {durable}, or not bit-identical")
+        row = dict(arch=cfg.name, layers=layers, batch=B, prompt_len=prompt_len, tokens=tokens,
+                   kv_window=window, kv_page=page, store_root="build/" + Path(root).name,
+                   prefill_s=prefill_s, decode_s=decode_s, decode_tok_per_s=B * tokens / decode_s,
+                   decode_tok_per_s_without_store=B * tokens / ref_decode_s,
+                   decode_tok_per_s_serve_phase=record["serve"]["decode_tok_per_s"],
+                   pages_persisted=st["pages_persisted"], bytes_persisted=st["bytes_persisted"], drain_s=drain_s,
+                   persist_mb_per_s=st["bytes_persisted"] / 1e6 / (prefill_s + decode_s + drain_s),
+                   launches=launches, flash_paths=paths, tokens_equal_without_store=True,
+                   evict_s=evict_s, resume_s=resume_s, resume_mb_per_s=st["bytes_persisted"] / 1e6 / resume_s,
+                   bytes_parked=parked, tokens_after_resume_equal=True, tokens_after_resume=extra[0].tolist(),
+                   tiers_after_resume_steps_equal=True,
+                   restore_layer_s=restore_s, restored_tokens=restored, restore_bit_identical=True)
+        emit("serve_store", **row)
+        record["serve_store"] = row
+        for c in tiered:
+            c.close()
+        del caches, ref_caches, tiered, refs, params
+    finally:
+        store.close()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ recurrent serve
 
 
@@ -592,7 +821,7 @@ def recurrent_serve_check_phase(record: dict, arch: str, B: int, prompt_len: int
 # ------------------------------------------------------------------------- main
 
 
-SERVE_PHASES = ("serve", "serve_recurrentgemma", "serve_xlstm")
+SERVE_PHASES = ("serve", "serve_store", "serve_recurrentgemma", "serve_xlstm")
 
 
 def kernels_line(record: dict) -> dict:
@@ -611,12 +840,17 @@ def kernels_line(record: dict) -> dict:
     ):
         rows = record[phase]
         main = rows[0]
+        if name == "tiered_decode":
+            rows = rows + record["tiered_decode_sweep"]
         by_phase = {p: record[p]["launches"][name] for p in SERVE_PHASES if record[p]["launches"][name]}
         entry = dict(name=name, route="cuda", source=source, replaces=replaces,
                      launches=sum(by_phase.values()), launches_by_phase=by_phase,
                      max_abs_err=max(r["max_abs_err"] for r in rows),
                      ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                      bound_by=main["bound_by"], library_ms=main["library_ms"])
+        if name == "tiered_decode":
+            entry.update(groups=sorted({r["G"] for r in rows}), head_dims=sorted({r["D"] for r in rows}),
+                         shapes_run=sorted({(r["G"], r["D"]) for r in rows}))
         if name == "flash_attention":
             entry.update(path=main["path"], library_masked_ms=main["library_masked_ms"],
                          tensor_core_launches=sum(record[p]["flash_paths"]["tensor_core"] for p in SERVE_PHASES))
@@ -668,6 +902,7 @@ def main() -> int:
     mlstm_phase(record)
     serve_phase(record, out_dir)
     serve_check_phase(record)
+    serve_store_phase(record)
     recurrent_serve_phase(record, out_dir, "recurrentgemma_9b", B=4, prompt_len=4096, tokens=64)
     recurrent_serve_phase(record, out_dir, "xlstm_125m", B=4, prompt_len=2048, tokens=64)
     recurrent_serve_check_phase(record, "recurrentgemma_9b", B=2, prompt_len=2100, tokens=16)

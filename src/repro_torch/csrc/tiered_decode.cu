@@ -23,25 +23,39 @@
 //     one contiguous arc of the ring).  Invalid slots have no number, so
 //     nothing ever loads them, and the C - cold_len unused cold rows are a
 //     stride, not a loop bound;
-//   * pass 1 runs a grid of (B * KV, n_split) blocks; block (bk, i) folds the
-//     contiguous key range [i * n / n_split, (i + 1) * n / n_split) for all G
-//     query heads of kv head bk, so every K/V row is still read once, and
-//     the n_split blocks of a row fill the SMs that one block per row left
-//     idle.  n_split is chosen by the wrapper (kernels/tiered_decode.py) so
-//     that all blocks fit one wave (two blocks an SM up to G = 4);
+//   * pass 1 runs a grid of (B * KV, n_split, tiles) blocks; block (bk, i, t)
+//     folds the contiguous key range [i * n / n_split, (i + 1) * n / n_split)
+//     for the query heads of head tile t of kv head bk, and the n_split
+//     blocks of a row fill the SMs that one block per row left idle.  n_split
+//     is chosen by the wrapper (kernels/tiered_decode.py) so that all blocks
+//     fit one wave (two blocks an SM up to GT = 4 heads a tile);
+//   * any group G = H / KV: the G query heads of a kv head are cut into
+//     tiles = ceil(G / GT) tiles of GT heads, GT from a few instantiations
+//     (1, 2, 4, 6, 8), so that a lane's q and accumulator slices, GT x 16
+//     bytes each, stay in registers.  The heads of the last tile past G are
+//     padding (at most one up to G = 8): they repeat the tile's last head,
+//     with no branch in the key loop, and nothing is stored for them.  A kv
+//     row is read once per tile; all blocks
+//     of a launch are resident in one wave, so the tiles of one (row, split)
+//     stream the same rows at the same time and all but the first find them
+//     in L2;
 //   * loads are 16 bytes a lane: a bf16 row of D = 128 is half a warp, so
-//     one load instruction covers two keys.  Each lane issues the K and V
-//     rows of U keys before it uses any of them: at U = 4 (G <= 4; 2 above)
-//     that is 8 * 16 = 128 bytes a lane and 32 KB a block in flight;
-//   * each block writes its partial softmax (m, l, acc[G][D]) to fp32
-//     scratch, and pass 2 (one block per row) merges the n_split partials;
-//     a partial with m = -inf (a split with no key) adds nothing.  With one
-//     split pass 1 writes the output itself and pass 2 is not launched;
+//     one load instruction covers two keys.  A row wider than a warp's 32
+//     loads (fp32 at D = 256) gives each lane NV = 2 slices of it, 512 bytes
+//     apart, so neighbouring lanes still read neighbouring bytes.  Each lane
+//     issues the K and V rows of U keys before it uses any of them (U NV = 4
+//     up to GT = 4, 2 above): 128 bytes a lane, 32 KB a block in flight;
+//   * each block writes its partial softmax (m, l, acc[GT][D]) to fp32
+//     scratch, and pass 2 (one block per (b, kv head)) merges the n_split
+//     partials of each of its G query heads; a partial with m = -inf (a split
+//     with no key) adds nothing.  With one split pass 1 writes the output
+//     itself and pass 2 is not launched;
 //   * hot_len, cold_len and newest are plain arguments (the host knows them
 //     each step), so nothing is read before the first K/V load.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <atomic>
 #include <math.h>
 #include <stdint.h>
 
@@ -58,9 +72,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// The EPL = 16 / sizeof(T) elements of one 16-byte load, as floats.
+// The EPL = 16 / sizeof(T) elements of one 16-byte load, as floats, to x[0, EPL).
 template <typename T, int EPL>
-__device__ __forceinline__ void unpack(const uint4& raw, float (&x)[EPL]) {
+__device__ __forceinline__ void unpack(const uint4& raw, float* x) {
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int i = 0; i < EPL; ++i) x[i] = to_f(e[i]);
@@ -74,9 +88,9 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-// Key number k of the valid-key order -> row offset (in elements) of its K/V
-// row: cold position k, or the (k - cold_len)-th oldest valid ring slot.
-__device__ __forceinline__ const void* key_row(int k, int cold_len, int hot_len, int newest, int W,
+// Key number k of the valid-key order -> its K or V row: cold position k, or
+// the (k - cold_len)-th oldest valid ring slot.
+__device__ __forceinline__ const char* key_row(int k, int cold_len, int hot_len, int newest, int W,
                                                const char* cold, const char* hot, size_t row_bytes) {
   if (k < cold_len) return cold + (size_t)k * row_bytes;
   int slot = (newest - hot_len + 1 + (k - cold_len)) % W;
@@ -84,47 +98,68 @@ __device__ __forceinline__ const void* key_row(int k, int cold_len, int hot_len,
   return hot + (size_t)slot * row_bytes;
 }
 
-// Pass 1: block (bk, split) folds its key range for the G heads of kv head bk.
-// Two blocks an SM up to G = 4 (at most 128 registers a thread), one at G = 8
-// (its G x 16-byte q and accumulator slices take ~216); the wrapper's split
-// planner counts the same (kernels/tiered_decode.py::blocks_per_sm).
-template <typename T, int D, int G>
-__global__ void __launch_bounds__(kWarps * 32, G <= 4 ? 2 : 1)
+// How a row of D elements of T lies on a warp: EPL elements a 16-byte load,
+// LPK lanes a key, NV loads a lane, EL = NV * EPL elements a lane.
+template <typename T, int D>
+struct RowLayout {
+  static constexpr int EPL = 16 / sizeof(T);
+  static constexpr int LPK = D / EPL < 32 ? D / EPL : 32;
+  static constexpr int NV = D / (EPL * LPK);
+  static constexpr int EL = NV * EPL;
+  static_assert(LPK >= 1 && 32 % LPK == 0 && NV * EPL * LPK == D, "row must tile a warp");
+};
+
+// Pass-1 shared memory: per warp, m and l of each head, then acc[GT][D].
+template <int D, int GT>
+constexpr size_t partial_smem_bytes() {
+  return (size_t)kWarps * GT * (D + 2) * sizeof(float);
+}
+
+// Pass 1: block (bk, split, t) folds its key range for the heads of tile t of
+// kv head bk.  Two blocks an SM up to GT = 4 (at most 128 registers
+// a thread), one above (its GT x 16-byte q and accumulator slices take ~216);
+// the wrapper's split planner counts the same (kernels/tiered_decode.py::
+// blocks_per_sm).
+template <typename T, int D, int GT>
+__global__ void __launch_bounds__(kWarps * 32, GT <= 4 ? 2 : 1)
 tiered_partial_kernel(const T* __restrict__ q, const T* __restrict__ hot_k,
                       const T* __restrict__ hot_v, const T* __restrict__ cold_k,
                       const T* __restrict__ cold_v, T* __restrict__ out,
-                      float* __restrict__ part_ml, float* __restrict__ part_acc, int W, int C,
-                      int hot_len, int cold_len, int newest, float scale_log2) {
-  constexpr int EPL = 16 / sizeof(T);        // elements per lane (one 16-byte load)
-  constexpr int LPK = D / EPL;               // lanes per key row
-  static_assert(LPK >= 1 && LPK <= 32 && (32 % LPK) == 0, "row must tile a warp");
+                      float* __restrict__ part_ml, float* __restrict__ part_acc, int G, int W,
+                      int C, int hot_len, int cold_len, int newest, float scale_log2) {
+  using L = RowLayout<T, D>;
+  constexpr int EPL = L::EPL, LPK = L::LPK, NV = L::NV, EL = L::EL;
   constexpr int KPW = 32 / LPK;              // keys per warp load
   constexpr int NS = kWarps * KPW;           // key streams per block
-  constexpr int U = G <= 4 ? 4 : 2;          // keys per stream issued ahead
-  const int bk = blockIdx.x, split = blockIdx.y, n_split = gridDim.y;
+  constexpr int U = (GT <= 4 ? 4 : 2) / NV > 0 ? (GT <= 4 ? 4 : 2) / NV : 1;  // keys a stream issues ahead
+  constexpr int SLICE = LPK * EPL;           // elements between a lane's slices
+  const int bk = blockIdx.x, h0 = blockIdx.z * GT;
+  const int nh = min(GT, G - h0);            // heads of this tile; the rest are padding
+  const int split = blockIdx.y, n_split = gridDim.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int stream = warp * KPW + lane / LPK;  // this lane's key stream
-  const int col = (lane % LPK) * EPL;          // first element this lane holds
+  const int col = (lane % LPK) * EPL;          // first element of this lane's first slice
 
   const int n_keys = hot_len + cold_len;
   const int k0 = (int)((long long)split * n_keys / n_split);
   const int k1 = (int)((long long)(split + 1) * n_keys / n_split);
 
-  float qr[G][EPL];
+  float qr[GT][EL];
 #pragma unroll
-  for (int h = 0; h < G; ++h) {
-    uint4 raw = *reinterpret_cast<const uint4*>(q + ((size_t)bk * G + h) * D + col);
-    unpack<T, EPL>(raw, qr[h]);
+  for (int h = 0; h < GT; ++h) {
+    const T* qh = q + ((size_t)bk * G + h0 + min(h, nh - 1)) * D + col;  // a padded head repeats the last
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) qr[h][e] *= scale_log2;  // scores in the log2 domain
+    for (int j = 0; j < NV; ++j) unpack<T, EPL>(*reinterpret_cast<const uint4*>(qh + j * SLICE), &qr[h][j * EPL]);
+#pragma unroll
+    for (int e = 0; e < EL; ++e) qr[h][e] *= scale_log2;  // scores in the log2 domain
   }
-  float m[G], l[G], acc[G][EPL];
+  float m[GT], l[GT], acc[GT][EL];
 #pragma unroll
-  for (int h = 0; h < G; ++h) {
+  for (int h = 0; h < GT; ++h) {
     m[h] = -INFINITY;
     l[h] = 0.f;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[h][e] = 0.f;
+    for (int e = 0; e < EL; ++e) acc[h][e] = 0.f;
   }
 
   const size_t row_bytes = (size_t)D * sizeof(T);
@@ -138,35 +173,43 @@ tiered_partial_kernel(const T* __restrict__ q, const T* __restrict__ hot_k,
   // scores are -inf.
   for (int wbase = k0 + warp * KPW; wbase < k1; wbase += NS * U) {
     const int base = wbase + stream % KPW;
-    uint4 kraw[U], vraw[U];
+    uint4 kraw[U][NV], vraw[U][NV];
     bool ok[U];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {  // all 2U loads issued before any is used
+    for (int u = 0; u < U; ++u) {  // all 2 U NV loads issued before any is used
       const int k = base + u * NS;
       ok[u] = k < k1;
       const int kk = ok[u] ? k : wbase;
-      kraw[u] = *reinterpret_cast<const uint4*>(key_row(kk, cold_len, hot_len, newest, W, ck, hk, row_bytes));
-      vraw[u] = *reinterpret_cast<const uint4*>(key_row(kk, cold_len, hot_len, newest, W, cv, hv, row_bytes));
+      const char* kp = key_row(kk, cold_len, hot_len, newest, W, ck, hk, row_bytes);
+      const char* vp = key_row(kk, cold_len, hot_len, newest, W, cv, hv, row_bytes);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        kraw[u][j] = *reinterpret_cast<const uint4*>(kp + j * SLICE * sizeof(T));
+        vraw[u][j] = *reinterpret_cast<const uint4*>(vp + j * SLICE * sizeof(T));
+      }
     }
-    float s[U][G];
+    float s[U][GT];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kx[EPL];
-      unpack<T, EPL>(kraw[u], kx);
+      float kx[EL];
 #pragma unroll
-      for (int h = 0; h < G; ++h) {
+      for (int j = 0; j < NV; ++j) unpack<T, EPL>(kraw[u][j], &kx[j * EPL]);
+#pragma unroll
+      for (int h = 0; h < GT; ++h) {
         float p = 0.f;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) p += qr[h][e] * kx[e];
+        for (int e = 0; e < EL; ++e) p += qr[h][e] * kx[e];
         p = group_sum<LPK>(p);  // every lane of the warp shuffles
         s[u][h] = ok[u] ? p : -INFINITY;
       }
     }
-    float vx[U][EPL];
+    float vx[U][EL];
 #pragma unroll
-    for (int u = 0; u < U; ++u) unpack<T, EPL>(vraw[u], vx[u]);
+    for (int u = 0; u < U; ++u)
 #pragma unroll
-    for (int h = 0; h < G; ++h) {
+      for (int j = 0; j < NV; ++j) unpack<T, EPL>(vraw[u][j], &vx[u][j * EPL]);
+#pragma unroll
+    for (int h = 0; h < GT; ++h) {
       float mt = s[0][h];
 #pragma unroll
       for (int u = 1; u < U; ++u) mt = fmaxf(mt, s[u][h]);
@@ -175,13 +218,13 @@ tiered_partial_kernel(const T* __restrict__ q, const T* __restrict__ hot_k,
       const float alpha = exp2f(m[h] - m_use);  // 0 while m[h] is -inf
       float lsum = 0.f;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[h][e] *= alpha;
+      for (int e = 0; e < EL; ++e) acc[h][e] *= alpha;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const float p = exp2f(s[u][h] - m_use);  // 0 for a missing key
         lsum += p;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[h][e] += p * vx[u][e];
+        for (int e = 0; e < EL; ++e) acc[h][e] += p * vx[u][e];
       }
       l[h] = alpha * l[h] + lsum;
       m[h] = m_new;
@@ -192,14 +235,14 @@ tiered_partial_kernel(const T* __restrict__ q, const T* __restrict__ hot_k,
 #pragma unroll
   for (int o = LPK; o < 32; o <<= 1) {
 #pragma unroll
-    for (int h = 0; h < G; ++h) {
+    for (int h = 0; h < GT; ++h) {
       const float m_o = __shfl_xor_sync(0xffffffffu, m[h], o);
       const float l_o = __shfl_xor_sync(0xffffffffu, l[h], o);
       const float M = fmaxf(m[h], m_o);
       const float c = M == -INFINITY ? 0.f : exp2f(m[h] - M);
       const float c_o = M == -INFINITY ? 0.f : exp2f(m_o - M);
 #pragma unroll
-      for (int e = 0; e < EPL; ++e)
+      for (int e = 0; e < EL; ++e)
         acc[h][e] = c * acc[h][e] + c_o * __shfl_xor_sync(0xffffffffu, acc[h][e], o);
       l[h] = c * l[h] + c_o * l_o;
       m[h] = M;
@@ -207,44 +250,49 @@ tiered_partial_kernel(const T* __restrict__ q, const T* __restrict__ hot_k,
   }
 
   // Then the warps, through shared memory.
-  __shared__ float s_m[kWarps][G], s_l[kWarps][G];
-  __shared__ float s_acc[kWarps][G][D];
+  extern __shared__ float smem[];
+  float* s_m = smem;                      // [kWarps][GT]
+  float* s_l = smem + kWarps * GT;        // [kWarps][GT]
+  float* s_acc = smem + 2 * kWarps * GT;  // [kWarps][GT][D]
   if (lane < LPK) {
 #pragma unroll
-    for (int h = 0; h < G; ++h) {
+    for (int h = 0; h < GT; ++h) {
+      if (h >= nh) continue;
       if (lane == 0) {
-        s_m[warp][h] = m[h];
-        s_l[warp][h] = l[h];
+        s_m[warp * GT + h] = m[h];
+        s_l[warp * GT + h] = l[h];
       }
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) s_acc[warp][h][col + e] = acc[h][e];
+      for (int j = 0; j < NV; ++j)
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) s_acc[(warp * GT + h) * D + col + j * SLICE + e] = acc[h][j * EPL + e];
     }
   }
   __syncthreads();
 
-  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < nh * D; idx += blockDim.x) {
     const int h = idx / D, d = idx % D;
     float M = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, s_m[w][h]);
-    float L = 0.f, O = 0.f;
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, s_m[w * GT + h]);
+    float Lsum = 0.f, O = 0.f;
     if (M != -INFINITY) {
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) {
-        const float c = exp2f(s_m[w][h] - M);  // 0 for a warp that saw no key
-        L += c * s_l[w][h];
-        O += c * s_acc[w][h][d];
+        const float c = exp2f(s_m[w * GT + h] - M);  // 0 for a warp that saw no key
+        Lsum += c * s_l[w * GT + h];
+        O += c * s_acc[(w * GT + h) * D + d];
       }
     }
-    const size_t row = (size_t)bk * G + h;
+    const size_t row = (size_t)bk * G + h0 + h;
     if (n_split == 1) {
-      out[row * D + d] = from_f<T>(L == 0.f ? 0.f : O / L);
+      out[row * D + d] = from_f<T>(Lsum == 0.f ? 0.f : O / Lsum);
     } else {
       const size_t p = row * n_split + split;
       part_acc[p * D + d] = O;
       if (d == 0) {
         part_ml[2 * p] = M;
-        part_ml[2 * p + 1] = L;
+        part_ml[2 * p + 1] = Lsum;
       }
     }
   }
@@ -273,48 +321,74 @@ tiered_merge_kernel(const float* __restrict__ part_ml, const float* __restrict__
   }
 }
 
+template <typename T, int D, int GT>
+cudaError_t launch_tile(const void* q, const void* hk, const void* hv, const void* ck,
+                        const void* cv, void* out, float* part_ml, float* part_acc, int B, int KV,
+                        int G, int W, int C, int hot_len, int cold_len, int newest, int n_split,
+                        cudaStream_t stream) {
+  const float scale_log2 = (float)(1.0 / sqrt((double)D)) * kLog2e;
+  constexpr size_t smem = partial_smem_bytes<D, GT>();
+  auto kernel = tiered_partial_kernel<T, D, GT>;
+  if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic shared memory, once a device
+    static std::atomic<unsigned long long> opted_in{0};  // bit i: device i
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = 1ull << (dev & 63);
+    if (!(opted_in.load(std::memory_order_relaxed) & bit)) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+      opted_in.fetch_or(bit, std::memory_order_relaxed);
+    }
+  }
+  const int tiles = (G + GT - 1) / GT;
+  kernel<<<dim3(B * KV, n_split, tiles), kWarps * 32, smem, stream>>>(
+      (const T*)q, (const T*)hk, (const T*)hv, (const T*)ck, (const T*)cv, (T*)out, part_ml, part_acc, G, W,
+      C, hot_len, cold_len, newest, scale_log2);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
-cudaError_t launch_g(int G, const void* q, const void* hk, const void* hv, const void* ck,
+cudaError_t launch_g(int G, int GT, const void* q, const void* hk, const void* hv, const void* ck,
                      const void* cv, void* out, float* part_ml, float* part_acc, int B, int KV,
                      int W, int C, int hot_len, int cold_len, int newest, int n_split,
                      cudaStream_t stream) {
-  const float scale_log2 = (float)(1.0 / sqrt((double)D)) * kLog2e;
-  dim3 grid(B * KV, n_split), block(kWarps * 32);
-#define TD_CASE(GG)                                                                            \
-  case GG:                                                                                     \
-    tiered_partial_kernel<T, D, GG><<<grid, block, 0, stream>>>(                               \
-        (const T*)q, (const T*)hk, (const T*)hv, (const T*)ck, (const T*)cv, (T*)out, part_ml, \
-        part_acc, W, C, hot_len, cold_len, newest, scale_log2);                                \
+  cudaError_t err;
+  switch (GT) {
+#define TD_TILE(GG)                                                                                \
+  case GG:                                                                                         \
+    err = launch_tile<T, D, GG>(q, hk, hv, ck, cv, out, part_ml, part_acc, B, KV, G, W, C, hot_len, \
+                                cold_len, newest, n_split, stream);                                \
     break;
-  switch (G) {
-    TD_CASE(1)
-    TD_CASE(2)
-    TD_CASE(4)
-    TD_CASE(8)
+    TD_TILE(1)
+    TD_TILE(2)
+    TD_TILE(4)
+    TD_TILE(6)
+    TD_TILE(8)
+#undef TD_TILE
     default:
       return cudaErrorInvalidValue;
   }
-#undef TD_CASE
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   tiered_merge_kernel<T, D><<<B * KV, 256, 0, stream>>>(part_ml, part_acc, (T*)out, G, n_split);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_d(int D, int G, const void* q, const void* hk, const void* hv,
+cudaError_t launch_d(int D, int G, int GT, const void* q, const void* hk, const void* hv,
                      const void* ck, const void* cv, void* out, float* ml, float* acc, int B,
                      int KV, int W, int C, int hot_len, int cold_len, int newest, int n_split,
                      cudaStream_t stream) {
   switch (D) {
-#define TD_D(DD)                                                                              \
-  case DD:                                                                                    \
-    return launch_g<T, DD>(G, q, hk, hv, ck, cv, out, ml, acc, B, KV, W, C, hot_len, cold_len, \
+#define TD_D(DD)                                                                                 \
+  case DD:                                                                                       \
+    return launch_g<T, DD>(G, GT, q, hk, hv, ck, cv, out, ml, acc, B, KV, W, C, hot_len, cold_len, \
                            newest, n_split, stream);
     TD_D(16)
     TD_D(32)
     TD_D(64)
     TD_D(128)
+    TD_D(256)
 #undef TD_D
     default: return cudaErrorInvalidValue;
   }
@@ -322,16 +396,17 @@ cudaError_t launch_d(int D, int G, const void* q, const void* hk, const void* hv
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  scratch: n_split > 1 needs
-// B * H * n_split * (D + 2) floats (the partials); unused at n_split = 1.
-// Launches pass 1 and, when n_split > 1, pass 2 on one stream; returns
-// cudaGetLastError() after them (cudaErrorInvalidValue for a D, G, dtype
-// or split count it was not built for).
+// dtype: 0 = float32, 1 = bfloat16.  head_tile: GT, the query heads a
+// pass-1 block takes (1, 2, 4, 6 or 8; the wrapper's head_tile).  scratch:
+// n_split > 1 needs B * H * n_split * (D + 2) floats (the partials); unused
+// at n_split = 1.  Launches pass 1 and, when n_split > 1, pass 2 on one
+// stream; returns cudaGetLastError() after them (cudaErrorInvalidValue for a
+// D, head tile, dtype or split count it was not built for).
 extern "C" int tiered_decode_launch(const void* q, const void* hot_k, const void* hot_v,
                                     const void* cold_k, const void* cold_v, void* out,
                                     void* scratch, int B, int H, int KV, int W, int C, int D,
-                                    int hot_len, int cold_len, int newest, int n_split, int dtype,
-                                    void* stream) {
+                                    int hot_len, int cold_len, int newest, int n_split, int head_tile,
+                                    int dtype, void* stream) {
   if (KV <= 0 || H % KV || n_split < 1 || n_split > 65535 || (n_split > 1 && !scratch))
     return (int)cudaErrorInvalidValue;
   const int G = H / KV;
@@ -339,10 +414,10 @@ extern "C" int tiered_decode_launch(const void* q, const void* hot_k, const void
   float* acc = ml ? ml + (size_t)B * H * n_split * 2 : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)launch_d<float>(D, G, q, hot_k, hot_v, cold_k, cold_v, out, ml, acc, B, KV, W, C,
+    return (int)launch_d<float>(D, G, head_tile, q, hot_k, hot_v, cold_k, cold_v, out, ml, acc, B, KV, W, C,
                                 hot_len, cold_len, newest, n_split, s);
   if (dtype == 1)
-    return (int)launch_d<__nv_bfloat16>(D, G, q, hot_k, hot_v, cold_k, cold_v, out, ml, acc, B,
+    return (int)launch_d<__nv_bfloat16>(D, G, head_tile, q, hot_k, hot_v, cold_k, cold_v, out, ml, acc, B,
                                         KV, W, C, hot_len, cold_len, newest, n_split, s);
   return (int)cudaErrorInvalidValue;
 }

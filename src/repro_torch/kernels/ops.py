@@ -87,7 +87,7 @@ def build(names=SOURCES) -> dict[str, Path]:
 def _bind(lib: ctypes.CDLL, name: str) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     if name == "tiered_decode":
-        fns = [(lib.tiered_decode_launch, [P] * 7 + [I] * 11 + [P])]
+        fns = [(lib.tiered_decode_launch, [P] * 7 + [I] * 12 + [P])]
     elif name == "flash_attention":
         args = [P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float]
         fns = [(lib.flash_attention_launch, args + [I, P]), (lib.flash_attention_wgmma_launch, args + [P])]

@@ -9,7 +9,16 @@ unless ``--device cpu`` is given.
 
 ``--kv-window W`` routes every full-attention layer's KV through the
 two-level ``TieredKVCache`` (device hot ring of W tokens + paged pinned host
-cold tier); ``--kv-page`` sets the cold staging page.  Without it the dense
+cold tier); ``--kv-page`` sets the cold staging page.  ``--store-root DIR``
+adds the durable third level: completed cold pages persist through a
+``repro_torch.core.TwoLevelStore`` at DIR (memory tier in front of a
+striped file tier), and the run prints the pages and bytes persisted.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --reduced \
+        --batch 2 --prompt-len 48 --tokens 24 --kv-window 32 --kv-page 16 \
+        --store-root /tmp/kvstore --device cpu
+
+Without ``--kv-window`` the dense
 dict-cache loop runs: windowed attention keeps its O(window) ring page and
 the recurrent layers (recurrentgemma-9b, xlstm-125m) their O(1) states.
 Prefill runs the kernels (flash attention, the RG-LRU scan, the chunkwise
@@ -60,9 +69,10 @@ def serve_loop(cfg, batch: int, prompt_len: int, tokens: int, seed: int = 0, dev
 
 
 def tiered_serve(cfg, batch: int, prompt_len: int, tokens: int, window: int,
-                 page: int | None, seed: int = 0, device="cuda", attn_impl: str = "flash"):
+                 page: int | None, seed: int = 0, device="cuda", attn_impl: str = "flash", store=None):
     """Decode loop routed through the two-level KV cache, prefill attention
-    by ``attn_impl`` (the flash kernel by default).
+    by ``attn_impl`` (the flash kernel by default); ``store`` adds the
+    durable third level (completed cold pages persist into it).
     Returns (generated, prefill_s, decode_s, stats)."""
     cfg = dataclasses.replace(cfg, scan_layers=False, attn_impl=attn_impl)
     if cfg.attn_logit_softcap > 0:
@@ -71,7 +81,7 @@ def tiered_serve(cfg, batch: int, prompt_len: int, tokens: int, window: int,
     params = init_params(model, seed, device)
     prompts = _prompts(cfg, batch, prompt_len, seed, device)
     gen, prefill_s, decode_s, caches = tiered_serve_loop(
-        model, cfg, params, prompts, tokens, window=window, page=page
+        model, cfg, params, prompts, tokens, window=window, page=page, store=store
     )
     return gen, prefill_s, decode_s, tiered_cache_stats(caches)
 
@@ -89,17 +99,28 @@ def main() -> None:
                     help="cold-tier staging page in tokens (default min(window, 512))")
     ap.add_argument("--attn-impl", choices=("xla", "flash"), default="flash",
                     help="prefill: 'flash' (default) runs the kernels, 'xla' their plain versions")
+    ap.add_argument("--store-root", default="",
+                    help="with --kv-window: persist cold KV pages through a two-level store at this root")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args()
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     if args.kv_window > 0:
-        gen, prefill_s, decode_s, st = tiered_serve(
-            cfg, args.batch, args.prompt_len, args.tokens, window=args.kv_window,
-            page=args.kv_page or None, seed=args.seed, device=args.device,
-            attn_impl=args.attn_impl,
-        )
+        store = None
+        if args.store_root:
+            from repro_torch.core import TwoLevelStore
+
+            store = TwoLevelStore(args.store_root)
+        try:
+            gen, prefill_s, decode_s, st = tiered_serve(
+                cfg, args.batch, args.prompt_len, args.tokens, window=args.kv_window,
+                page=args.kv_page or None, seed=args.seed, device=args.device,
+                attn_impl=args.attn_impl, store=store,
+            )
+        finally:
+            if store is not None:
+                store.close()
     else:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
         gen, prefill_s, decode_s = serve_loop(
@@ -117,6 +138,9 @@ def main() -> None:
               f"staged {st['bytes_staged']/steps:,.0f} B/step over {steps} steps "
               f"({st['pages_staged']} pages, each uploaded once), "
               f"{st['d2h_flushes']} batched write-through flushes")
+        if args.store_root:
+            print(f"store {args.store_root}: {st['pages_persisted']} pages persisted "
+                  f"({st['bytes_persisted']:,} bytes)")
     print(f"generated (row 0): {gen[0].tolist()[:24]}")
 
 

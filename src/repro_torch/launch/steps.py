@@ -33,13 +33,20 @@ def make_serve_step(model, cfg: ArchConfig) -> Callable:
 
 def make_tiered_caches(
     model, cfg: ArchConfig, batch: int, max_len: int, window: int, page: int | None,
-    dtype=torch.bfloat16, device="cuda", impl: str = "kernel",
+    dtype=torch.bfloat16, device="cuda", impl: str = "kernel", store=None,
+    store_prefix: str = "serving/kv", pages=None,
 ) -> dict:
     """Caches for the two-level serving backend: every full-attention GQA
     layer gets a ``TieredKVCache`` (device hot ring + paged host cold tier);
     windowed and recurrent layers keep their O(window) and O(1) caches
     (``make_layer_cache``).  ``impl`` is the
-    tiered caches' attend path (``"kernel"`` or ``"plain"``)."""
+    tiered caches' attend path (``"kernel"`` or ``"plain"``).
+
+    ``store`` (a :class:`~repro_torch.core.store.TwoLevelStore`) adds the
+    third level: completed cold pages persist under
+    ``<store_prefix>/prefix_<i>/``, so the KV history survives host-memory
+    loss; ``pages`` (a ``SharedPageRegistry``) stores each page once by
+    content instead."""
     hd = cfg.resolved_head_dim
     caches: dict[str, Any] = {}
     for i, spec in enumerate(model.prefix):
@@ -47,6 +54,7 @@ def make_tiered_caches(
             caches[f"prefix_{i}"] = TieredKVCache(
                 batch, cfg.n_kv_heads, hd, window=window, max_len=max_len,
                 dtype=dtype, page=page, device=device, impl=impl,
+                store=store, store_prefix=store_prefix, name=f"prefix_{i}", pages=pages,
             )
         else:
             caches[f"prefix_{i}"] = make_layer_cache(spec, cfg, batch, max_len, dtype, device)
@@ -110,20 +118,29 @@ def tiered_serve_loop(
     page: int | None = None,
     dtype=torch.bfloat16,
     impl: str = "kernel",
+    store=None,
+    store_prefix: str = "serving/kv",
+    max_len: int | None = None,
 ) -> tuple[torch.Tensor, float, float, dict]:
     """Batched prefill + greedy decode routed through the two-level KV
-    cache, on the device ``prompts`` lie on.  Returns (generated, prefill_s,
-    decode_s, caches) — read per-layer ``TieredKVStats`` off the caches."""
+    cache, on the device ``prompts`` lie on; with ``store``, completed cold
+    pages persist into it (``make_tiered_caches``).  The caches hold
+    ``max_len`` tokens (by default the prompt, the new tokens and one; more
+    for a caller that decodes on with the returned caches).  Returns
+    (generated, prefill_s, decode_s, caches) — read per-layer
+    ``TieredKVStats`` off the caches."""
     batch, prompt_len = prompts.shape
     caches = make_tiered_caches(
-        model, cfg, batch, prompt_len + tokens + 1, window, page, dtype, prompts.device, impl,
+        model, cfg, batch, max_len or prompt_len + tokens + 1, window, page, dtype, prompts.device, impl,
+        store=store, store_prefix=store_prefix,
     )
     return _greedy(model, cfg, params, prompts, tokens, caches)
 
 
 def tiered_cache_stats(caches: dict) -> dict:
     """Aggregate ``TieredKVStats`` across the tiered layers of a cache dict
-    (hot fraction, staged H2D bytes, write-through flushes)."""
+    (hot fraction, staged H2D bytes, write-through flushes, pages and bytes
+    persisted into the store)."""
     tiered = [c for c in caches.values() if isinstance(c, TieredKVCache)]
     if not tiered:
         return {"layers": 0}
@@ -137,6 +154,8 @@ def tiered_cache_stats(caches: dict) -> dict:
         "pages_staged": sum(c.stats.pages_staged for c in tiered),
         "bytes_written_through": sum(c.stats.bytes_written_through for c in tiered),
         "d2h_flushes": sum(c.stats.d2h_flushes for c in tiered),
+        "pages_persisted": sum(c.stats.pages_persisted for c in tiered),
+        "bytes_persisted": sum(c.stats.bytes_persisted for c in tiered),
         "hot_device_bytes": sum(c.hot_device_bytes() for c in tiered),
         "host_bytes": sum(c.host_bytes() for c in tiered),
     }

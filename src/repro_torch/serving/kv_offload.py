@@ -23,6 +23,16 @@ Semantics (as in the JAX package):
   or the plain version wherever the tensors lie (``impl="plain"``).
 * ``host_views()`` returns the flushed history; ``rebuild_hot_from_cold()``
   is the device-loss recovery path.
+* Optional third level: constructed with a ``store=`` (a
+  :class:`~repro_torch.core.store.TwoLevelStore`), every *completed* cold
+  page is also persisted into the store (async write-back) under
+  ``<store_prefix>/<name>/page_NNNNNN``, or once per content through a
+  :class:`SharedPageRegistry`; the host tier declares itself a
+  latency-sensitive stream to the store's I/O controller.
+  ``restore_cold_from_store()`` rebuilds the history up to the last
+  persisted page after host-memory loss; ``evict_to_store()`` parks an idle
+  cache (pages, tail and manifest into the store, every tier freed) and
+  ``resume_from_store()`` brings it back bit-identical.
 
 Copies: the device-to-host flush and the host-to-device staging are
 synchronous copies on the current stream, so the host tier is complete
@@ -31,17 +41,22 @@ launches.  Overlapping them on a side stream is later work.
 
 The host tier keeps the JAX package's byte layout: ``(B, KV, max_len, D)``
 in the cache dtype, pages ``(B, KV, page, D)`` contiguous when cut out,
-k before v.  The store-backed third level (``store=``, the shared page
-registry, evict/resume, the memory arbiter) waits for the port's own copy
-of the store modules.
+k before v.  The store's page, tail and manifest files are the JAX
+package's too (a page blob is the k bytes of the page followed by its v
+bytes), so a history persisted by either package restores in the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import threading
 
 import torch
 
+from repro_torch.core.sched import StreamClass
+from repro_torch.core.store import WriteMode
 from repro_torch.kernels import ops, ref
 
 
@@ -54,11 +69,106 @@ class TieredKVStats:
     pages_staged: int = 0
     bytes_written_through: int = 0  # device->host write-through traffic
     d2h_flushes: int = 0  # batched sync points
+    pages_persisted: int = 0  # completed pages written into the store tier
+    bytes_persisted: int = 0
+    evictions: int = 0  # full evict-to-store cycles (idle session parked)
+    resumes: int = 0  # full resume-from-store cycles
+    demotions: int = 0  # staging-buffer drops under arbiter pressure
 
     def hot_fraction(self) -> float:
         """The paper's f = hot / (hot + cold) over all attends so far."""
         total = self.hot_hits_tokens + self.cold_reads_tokens
         return self.hot_hits_tokens / total if total else 1.0
+
+
+def _tensor_bytes(t: torch.Tensor) -> bytes:
+    """The bytes of ``t`` in C order, in its own dtype (bf16 included)."""
+    return t.contiguous().view(torch.uint8).numpy().tobytes()
+
+
+def _from_bytes(blob, dtype, shape) -> torch.Tensor:
+    """A host tensor over a writable copy of ``blob``, read as ``dtype``."""
+    return torch.frombuffer(bytearray(blob), dtype=dtype).reshape(shape)
+
+
+class SharedPageRegistry:
+    """Content-addressed, refcounted cold-page table over one store.
+
+    Sessions sharing a prompt prefix produce bit-identical completed cold
+    pages (causal attention: k/v at position *i* depend only on tokens up
+    to *i*, and the host tier stores the cache dtype exactly), so pages are
+    keyed by content hash and stored **once** across every session.
+    ``put`` takes a reference (storing the blob on first sight), ``decref``
+    drops one and deletes the blob when the count reaches zero, so a
+    retiring session never frees a page another live session still maps.
+    Counters are cumulative so the dedup ratio survives sessions retiring.
+    """
+
+    def __init__(self, store, prefix: str = "serving/pages") -> None:
+        self.store = store
+        self.prefix = prefix
+        self._lock = threading.Lock()
+        self._refs: dict[str, int] = {}
+        self.pages_logical = 0  # references handed out (puts + adopts)
+        self.pages_stored = 0  # distinct blobs ever written to the store
+        self.dedup_hits = 0
+        store.hint_stream(prefix + "/", StreamClass.LATENCY)
+
+    def _file(self, key: str) -> str:
+        return f"{self.prefix}/{key}"
+
+    def put(self, blob: bytes) -> str:
+        """Intern a completed page; returns its content key (ref held)."""
+        key = hashlib.sha1(blob).hexdigest()
+        with self._lock:
+            self.pages_logical += 1
+            n = self._refs.get(key, 0)
+            self._refs[key] = n + 1
+            if n:
+                self.dedup_hits += 1
+                return key
+            self.pages_stored += 1
+
+        self.store.put(self._file(key), blob, mode=WriteMode.ASYNC_WRITEBACK)
+        return key
+
+    def fetch(self, key: str) -> bytes:
+        return self.store.get(self._file(key))
+
+    def adopt(self, keys) -> None:
+        """Take references on already-stored pages: the resume path after the
+        registry's in-memory refcounts were lost (host restart)."""
+        with self._lock:
+            for key in keys:
+                self.pages_logical += 1
+                n = self._refs.get(key, 0)
+                self._refs[key] = n + 1
+                if n:
+                    self.dedup_hits += 1
+
+    def decref(self, key: str) -> bool:
+        """Drop one reference; deletes the blob at zero.  Returns whether
+        the physical page was deleted."""
+        with self._lock:
+            n = self._refs.get(key, 0) - 1
+            if n > 0:
+                self._refs[key] = n
+                return False
+            self._refs.pop(key, None)
+        self.store.delete(self._file(key))
+        return True
+
+    def refcount(self, key: str) -> int:
+        with self._lock:
+            return self._refs.get(key, 0)
+
+    def live_pages(self) -> int:
+        with self._lock:
+            return len(self._refs)
+
+    def dedup_ratio(self) -> float:
+        """Logical page references per physical stored page (at least 1)."""
+        return self.pages_logical / self.pages_stored if self.pages_stored else 1.0
 
 
 class TieredKVCache:
@@ -67,7 +177,8 @@ class TieredKVCache:
     Shapes: k, v tokens are (B, KV, D). Hot ring: (B, KV, W, D) on
     ``device``. Cold tier: a host tensor (B, KV, max_len, D) in the cache
     dtype (pinned when ``device`` is CUDA), staged to the device in
-    immutable ``page``-token pages.
+    immutable ``page``-token pages.  ``store`` / ``pages`` add the durable
+    third level (see the module note).
     """
 
     def __init__(
@@ -81,6 +192,10 @@ class TieredKVCache:
         page: int | None = None,
         device="cuda",
         impl: str = "kernel",
+        store=None,
+        store_prefix: str = "serving/kv",
+        name: str = "kv0",
+        pages: SharedPageRegistry | None = None,
     ):
         if window <= 0 or max_len < window:
             raise ValueError("need 0 < window <= max_len")
@@ -96,27 +211,270 @@ class TieredKVCache:
         self.dtype = dtype
         self.device = torch.device(device)
         self.impl = impl
-        self.hot_k = torch.zeros((batch, kv_heads, window, head_dim), dtype=dtype, device=self.device)
-        self.hot_v = torch.zeros_like(self.hot_k)
-        pin = self.device.type == "cuda"
-        host = (batch, kv_heads, max_len, head_dim)
-        self.cold_k = torch.zeros(host, dtype=dtype, pin_memory=pin)
-        self.cold_v = torch.zeros(host, dtype=dtype, pin_memory=pin)
         # Device staging buffer: paged capacity, a _block_k multiple (the
         # JAX kernel's streaming block), grown by doubling.
         self._block_k = page if page % 8 == 0 else 8 * (-(-page // 8))
-        self._cap = self._block_k
-        self._cold_k_dev = self._zeros_dev(self._cap)
-        self._cold_v_dev = self._zeros_dev(self._cap)
-        self._staged_pages = 0  # completed pages valid in the staging buffer
+        self._alloc_tiers()
         self._pending_k: list[torch.Tensor] = []  # (B, KV, n, D) blocks awaiting
         self._pending_v: list[torch.Tensor] = []  # batched host write-through
         self._flushed = 0  # tokens on the host tier
         self.length = 0
         self.stats = TieredKVStats()
+        # Optional store-backed third level.  With a SharedPageRegistry,
+        # completed pages are content-addressed and refcounted (shared
+        # across sessions); tail and manifest stay private under this
+        # cache's own store directory.
+        if pages is not None and store is None:
+            store = pages.store
+        self._store = store
+        self._store_dir = f"{store_prefix}/{name}"
+        self._persisted_pages = 0
+        self._pages = pages
+        self._page_keys: list[str] = []
+        self._arb_pool = None
+        self._closed = False
+        if store is not None:
+            store.hint_stream(store_prefix + "/", StreamClass.LATENCY)
+
+    def _alloc_tiers(self) -> None:
+        """Allocate every tier empty: the hot ring and the staging buffer on
+        the device, the host tier pinned when the device is CUDA.  Also the
+        resume path after a full eviction freed them."""
+        b, kv, d = self.batch, self.kv, self.dim
+        self.hot_k = torch.zeros((b, kv, self.window, d), dtype=self.dtype, device=self.device)
+        self.hot_v = torch.zeros_like(self.hot_k)
+        pin = self.device.type == "cuda"
+        self.cold_k = torch.zeros((b, kv, self.max_len, d), dtype=self.dtype, pin_memory=pin)
+        self.cold_v = torch.zeros((b, kv, self.max_len, d), dtype=self.dtype, pin_memory=pin)
+        self._cap = self._block_k
+        self._cold_k_dev = self._zeros_dev(self._cap)
+        self._cold_v_dev = self._zeros_dev(self._cap)
+        self._staged_pages = 0  # completed pages valid in the staging buffer
 
     def _zeros_dev(self, tokens: int) -> torch.Tensor:
         return torch.zeros((self.batch, self.kv, tokens, self.dim), dtype=self.dtype, device=self.device)
+
+    def attach_arbiter(self, arbiter, min_bytes: int = 0, weight: float = 1.0, name: str = "kv_staging"):
+        """Register the host KV history as pool ``name`` (latency class) of an
+        elastic :class:`~repro_torch.core.arbiter.MemoryArbiter`.
+
+        The pool floors to live usage: decode needs every appended token's
+        host copy, so the arbiter may route idle headroom elsewhere but never
+        asks this pool to shed held bytes.  Usage grows with the decoded
+        length; demand is the full ``max_len`` history.  :meth:`close`
+        deregisters the pool, so a retired session returns its bytes.
+        """
+        per_token = 2 * self.batch * self.kv * self.dim * self.cold_k.element_size()
+        pool = arbiter.register(
+            name,
+            cls="latency",
+            min_bytes=min_bytes,
+            weight=weight,
+            initial_bytes=per_token * self.max_len,
+            floor_to_usage=True,
+        )
+
+        def value_fn() -> float:
+            pool.note_used(per_token * self.length)
+            pool.note_demand(per_token * self.max_len)
+            return 16.0 * weight
+
+        pool.value_fn = value_fn
+        self._arb_pool = pool
+        return pool
+
+    # ------------------------------------------------------- store offload
+
+    def _page_file(self, p: int) -> str:
+        return f"{self._store_dir}/page_{p:06d}"
+
+    def _tail_file(self) -> str:
+        return f"{self._store_dir}/tail"
+
+    def _manifest_file(self) -> str:
+        return f"{self._store_dir}/manifest"
+
+    def _write_manifest(self, tail: int = 0) -> None:
+        """Persist the page map: ordered content keys (registry mode), page
+        geometry, and after an eviction the tail length, so a resume restores
+        the exact logical length, not just the durable page boundary."""
+        man: dict = {"page": self.page, "pages": self._persisted_pages, "length": self.length, "tail": tail}
+        if self._pages is not None:
+            man["keys"] = self._page_keys
+        self._store.put(self._manifest_file(), json.dumps(man).encode(), mode=WriteMode.ASYNC_WRITEBACK)
+
+    def _read_manifest(self) -> dict:
+        if self._store.exists(self._manifest_file()):
+            return json.loads(self._store.get(self._manifest_file()))
+        return {}
+
+    def _span_blob(self, lo: int, hi: int) -> bytes:
+        """Tokens [lo, hi) of the host tier as stored: k bytes, then v bytes."""
+        return _tensor_bytes(self.cold_k[:, :, lo:hi]) + _tensor_bytes(self.cold_v[:, :, lo:hi])
+
+    def _load_span(self, lo: int, hi: int, blob: bytes) -> None:
+        """Copy a k-then-v blob of tokens [lo, hi) into the host tier."""
+        shape = (self.batch, self.kv, hi - lo, self.dim)
+        per = len(blob) // 2
+        self.cold_k[:, :, lo:hi].copy_(_from_bytes(blob[:per], self.dtype, shape))
+        self.cold_v[:, :, lo:hi].copy_(_from_bytes(blob[per:], self.dtype, shape))
+
+    def _persist_pages(self) -> None:
+        """Write newly completed (immutable) cold pages into the store, each
+        exactly once, async write-back: through the registry by content hash,
+        or under this cache's private ``page_NNNNNN`` name."""
+        full = self._flushed // self.page
+        new = full > self._persisted_pages
+        for p in range(self._persisted_pages, full):
+            blob = self._span_blob(p * self.page, (p + 1) * self.page)
+            if self._pages is not None:
+                self._page_keys.append(self._pages.put(blob))
+            else:
+                self._store.put(self._page_file(p), blob, mode=WriteMode.ASYNC_WRITEBACK)
+            self.stats.pages_persisted += 1
+            self.stats.bytes_persisted += len(blob)
+        self._persisted_pages = full
+        if new and self._pages is not None:
+            self._write_manifest()
+
+    def _restore_pages(self) -> int:
+        """Refill cold pages from the store; returns tokens restored.  Clamped
+        at this cache's capacity, so a store written by a longer history
+        cannot walk the restore past ``max_len``."""
+        max_pages = self.max_len // self.page
+        if self._pages is not None:
+            keys = list(self._read_manifest().get("keys", []))[:max_pages]
+            fresh = not self._page_keys  # this handle held no refs yet
+            for p, key in enumerate(keys):
+                self._load_span(p * self.page, (p + 1) * self.page, self._pages.fetch(key))
+            self._page_keys = keys
+            if fresh and keys:
+                self._pages.adopt(keys)
+            p = len(keys)
+        else:
+            p = 0
+            while p < max_pages and self._store.exists(self._page_file(p)):
+                self._load_span(p * self.page, (p + 1) * self.page, self._store.get(self._page_file(p)))
+                p += 1
+        self._persisted_pages = p
+        return p * self.page
+
+    def restore_cold_from_store(self, rebuild_hot: bool = True) -> int:
+        """Host-memory loss recovery: refill the cold history from the store.
+
+        Restores every persisted page in order (the durable prefix: tokens
+        past the last completed page were never persisted), resets the
+        cache's logical state to that prefix (length included), and by
+        default rebuilds the hot ring.  Returns the restored length."""
+        if self._store is None:
+            raise RuntimeError("no store attached to restore from")
+        if self.cold_k is None:
+            self._alloc_tiers()
+        n = self._restore_pages()
+        self._pending_k, self._pending_v = [], []
+        self._flushed = n
+        self.length = n
+        self._staged_pages = 0  # staging buffer contents presumed stale
+        if rebuild_hot and n:
+            self.rebuild_hot_from_cold()
+        return n
+
+    # ----------------------------------------------- session evict / resume
+
+    def evict_to_store(self) -> int:
+        """Park the cache in the store: persist every completed page *and*
+        the partial tail, then free all three tiers.  Eviction is exact:
+        ``resume_from_store`` restores the cache bit-identically at its full
+        length, so a parked session holds no device or host memory.
+        Returns the parked length in tokens."""
+        if self._store is None:
+            raise RuntimeError("no store attached to evict into")
+        if self.cold_k is None:
+            return self.length  # already parked
+
+        self.flush_host()  # drains pending + persists completed pages
+        tail_lo = self._persisted_pages * self.page
+        tail_n = self.length - tail_lo
+        if tail_n > 0:
+            self._store.put(self._tail_file(), self._span_blob(tail_lo, self.length),
+                            mode=WriteMode.ASYNC_WRITEBACK)
+        self._write_manifest(tail=tail_n)
+        self.stats.evictions += 1
+        self._free_tiers()
+        return self.length
+
+    def resume_from_store(self) -> int:
+        """Un-park an evicted cache: reallocate the tiers (the host tier
+        pinned again), restore every page plus the tail, and rebuild the hot
+        ring on the device, bit-identical to the state before the eviction.
+        Returns the restored length."""
+        if self._store is None:
+            raise RuntimeError("no store attached to resume from")
+        expect = self.length
+        if self.cold_k is None:
+            self._alloc_tiers()
+        n = self._restore_pages()
+        tail_n = int(self._read_manifest().get("tail", 0))
+        if tail_n > 0 and self._store.exists(self._tail_file()):
+            self._load_span(n, n + tail_n, self._store.get(self._tail_file()))
+            n += tail_n
+        self._pending_k, self._pending_v = [], []
+        self._flushed = n
+        self.length = n
+        self._staged_pages = 0
+        if n:
+            self.rebuild_hot_from_cold()
+        self.stats.resumes += 1
+        if expect and n != expect:
+            raise RuntimeError(f"resume restored {n} tokens, expected {expect}")
+        return n
+
+    def drop_staging(self) -> int:
+        """Demotion under arbiter pressure: shrink the device staging buffer
+        back to one block.  The next ``attend`` re-stages the pages it needs
+        from the host tier (paying the H2D bytes again).  Returns the device
+        bytes freed."""
+        if self._cold_k_dev is None:
+            return 0
+        if self._cap == self._block_k and self._staged_pages == 0:
+            return 0
+        before = self.staged_device_bytes()
+        self._cap = self._block_k
+        self._cold_k_dev = self._zeros_dev(self._cap)
+        self._cold_v_dev = self._zeros_dev(self._cap)
+        self._staged_pages = 0
+        self.stats.demotions += 1
+        return before - self.staged_device_bytes()
+
+    def close(self, delete_store_files: bool = True) -> None:
+        """Retire the cache: release its arbiter pool, drop its references on
+        shared pages (deleting any that reach zero), delete its private store
+        files, and free every tier.  Idempotent."""
+        if self._closed:
+            return
+        self._closed = True
+        if self._arb_pool is not None:
+            self._arb_pool.release()
+            self._arb_pool = None
+        if self._pages is not None:
+            for key in self._page_keys:
+                self._pages.decref(key)
+            self._page_keys = []
+        if self._store is not None and delete_store_files:
+            if self._pages is None:
+                for p in range(self._persisted_pages):
+                    self._store.delete(self._page_file(p))
+            self._store.delete(self._tail_file())
+            self._store.delete(self._manifest_file())
+        self._free_tiers()
+
+    def _free_tiers(self) -> None:
+        self.hot_k = self.hot_v = None
+        self.cold_k = self.cold_v = None
+        self._cold_k_dev = self._cold_v_dev = None
+        self._pending_k, self._pending_v = [], []
+        self._cap = 0
+        self._staged_pages = 0
 
     # ------------------------------------------------------------- append
 
@@ -127,6 +485,8 @@ class TieredKVCache:
     def append_block(self, k: torch.Tensor, v: torch.Tensor) -> None:
         """Write S tokens (B, KV, S, D) — the prefill bulk path."""
         s = k.shape[2]
+        if self.cold_k is None:
+            raise RuntimeError("cache is evicted/closed; resume before appending")
         if self.length + s > self.max_len:
             raise ValueError("cache full")
         w = self.window
@@ -186,6 +546,8 @@ class TieredKVCache:
         self._flushed = self.length
         self.stats.d2h_flushes += 1
         self.stats.bytes_written_through += 2 * ks.numel() * ks.element_size()
+        if self._store is not None:
+            self._persist_pages()
 
     def _ensure_capacity(self, tokens: int) -> None:
         if tokens <= self._cap:
@@ -229,6 +591,8 @@ class TieredKVCache:
         """
         if self.length == 0:
             raise ValueError("attend on an empty cache")
+        if self.cold_k is None:
+            raise RuntimeError("cache is evicted/closed; resume before attending")
         impl = impl or self.impl
         self.stage_cold()
         hot_n, cold_n = self.hot_len, self.cold_len
@@ -258,13 +622,17 @@ class TieredKVCache:
     # --------------------------------------------------------- accounting
 
     def hot_device_bytes(self) -> int:
-        return 2 * self.batch * self.kv * self.window * self.dim * self.hot_k.element_size()
+        if self.hot_k is None:  # evicted/closed: the ring is freed
+            return 0
+        return 2 * self.batch * self.kv * self.window * self.dim * self.dtype.itemsize
 
     def staged_device_bytes(self) -> int:
-        return 2 * self.batch * self.kv * self._cap * self.dim * self.hot_k.element_size()
+        return 2 * self.batch * self.kv * self._cap * self.dim * self.dtype.itemsize
 
     def device_bytes(self) -> int:
         return self.hot_device_bytes() + self.staged_device_bytes()
 
     def host_bytes(self) -> int:
+        if self.cold_k is None:  # evicted/closed: the host tier is freed
+            return 0
         return 2 * self.batch * self.kv * self.max_len * self.dim * self.cold_k.element_size()

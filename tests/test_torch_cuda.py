@@ -126,6 +126,86 @@ def test_cuda_tiered_split_matches_plain(cuda_device, dtype):
     assert ops.launches()["tiered_decode"] - before == 1  # two CUDA launches, one op
 
 
+# (H, KV, D): every group G = H / KV from 1 to 16 and every head dim, among
+# them the GQA layers of the repository's configs: starcoder2_3b (24/2, 128),
+# grok_1_314b (48/8, 128), internvl2_1b (14/2, 64), gemma3_1b (4/1, 256),
+# recurrentgemma_9b (16/1, 256), and odd groups with a padded head tile.
+GROUP_SHAPES = [(1, 1, 16), (2, 1, 32), (3, 1, 64), (8, 2, 128), (5, 1, 128), (12, 2, 64), (14, 2, 64),
+                (7, 1, 256), (8, 1, 32), (9, 1, 128), (20, 2, 16), (11, 1, 64), (24, 2, 128), (48, 8, 128),
+                (13, 1, 32), (28, 2, 256), (15, 1, 64), (16, 1, 256), (4, 1, 256), (6, 1, 256)]
+# (hot_len, cold_len, newest, n_split or None for the planner's) over hot 16
+# slots and cold capacity 64: both tiers and a wrapped ring, no key, hot
+# only, cold only, and splits with no key.
+GROUP_CASES = [(16, 40, 15, None), (0, 0, 0, None), (12, 0, 11, None), (0, 40, 7, None), (16, 64, 5, 3),
+               (3, 2, 1, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_tiered_every_group_and_head_dim(cuda_device, dtype):
+    """The tiered kernel at every group from 1 to 16 and every head dim up
+    to 256 against ``ref.tiered_ring_attention_ref``, at the edge cases."""
+    from repro_torch.kernels.tiered_decode import GROUPS, HEAD_DIMS
+
+    assert sorted({h // kv for h, kv, _ in GROUP_SHAPES}) == list(GROUPS)
+    assert {d for *_, d in GROUP_SHAPES} == set(HEAD_DIMS)
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda_device).to(dt)
+    for h, kv, d in GROUP_SHAPES:
+        q, hk, hv, ck, cv = rnd(2, h, 1, d), rnd(2, kv, 16, d), rnd(2, kv, 16, d), rnd(2, kv, 64, d), rnd(2, kv, 64, d)
+        for hot_len, cold_len, newest, n_split in GROUP_CASES:
+            got = tiered_decode_attention_fwd(q, hk, hv, ck, cv, hot_len, cold_len, newest, n_split=n_split)
+            want = tref.tiered_ring_attention_ref(q, hk, hv, ck, cv, hot_len, cold_len, newest)
+            torch.testing.assert_close(got, want, **TOL[dtype], msg=lambda m: f"H={h} KV={kv} D={d} "
+                                       f"lens={(hot_len, cold_len, newest, n_split)}: {m}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_tiered_rejects_unbuilt_shapes(cuda_device):
+    """A group above 16 or a head dim not built raises; nothing falls back."""
+    z = lambda *s: torch.zeros(s, device=cuda_device)
+    for h, kv, d in [(17, 1, 64), (34, 2, 64), (4, 1, 48), (4, 1, 512)]:
+        with pytest.raises(ValueError, match="built for"):
+            ops.tiered_decode_attention(z(1, h, 1, d), z(1, kv, 8, d), z(1, kv, 8, d), z(1, kv, 8, d),
+                                        z(1, kv, 8, d), 4, 4, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_tiered_cache_evict_resume_round_trip(cuda_device, dtype, tmp_path):
+    """A cache on the card parked in the store and resumed: its pinned host
+    tier and device ring come back bit-identical, and the tiered kernel
+    gives what it gives on a twin that was never parked."""
+    from repro_torch.core import TwoLevelStore
+    from repro_torch.serving import TieredKVCache
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda_device).to(dt)
+    with TwoLevelStore(str(tmp_path / "pfs"), mem_capacity_bytes=16 * 2**20) as store:
+        c = TieredKVCache(2, 2, 128, window=32, max_len=256, dtype=dt, page=16, device=cuda_device, store=store)
+        twin = TieredKVCache(2, 2, 128, window=32, max_len=256, dtype=dt, page=16, device=cuda_device)
+        for _ in range(150):
+            k, v = rnd(2, 2, 128), rnd(2, 2, 128)
+            c.append(k, v)
+            twin.append(k, v)
+        q = rnd(2, 8, 1, 128)
+        assert torch.equal(c.attend(q), twin.attend(q))
+        assert c.evict_to_store() == 150 and c.device_bytes() == c.host_bytes() == 0
+        assert c.resume_from_store() == 150
+        twin.flush_host()
+        assert c.cold_k.is_pinned() and c.hot_k.is_cuda
+        for name in ("cold_k", "cold_v", "hot_k", "hot_v"):
+            assert torch.equal(getattr(c, name), getattr(twin, name)), name
+        before = ops.launches()["tiered_decode"]
+        assert torch.equal(c.attend(q), twin.attend(q))
+        torch.cuda.synchronize()
+        assert ops.launches()["tiered_decode"] - before == 2
+        c.close()
+
+
 @pytest.mark.cuda
 def test_cuda_tiered_serve_matches_plain(cuda_device):
     """Reduced qwen3 (D=16, 2 query heads per kv head) in fp32 on the card:

@@ -19,8 +19,8 @@ from repro.kernels import tiered_decode_attention as jax_tiered
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import TENSOR_CORE_HEAD_DIMS, flash_path
-from repro_torch.kernels.tiered_decode import (blocks_per_sm, plan_splits, split_merge_plain, split_ranges,
-                                               valid_key_rows)
+from repro_torch.kernels.tiered_decode import (GROUPS, HEAD_DIMS, HEAD_TILES, blocks_per_sm, head_tile, plan_splits,
+                                               split_merge_plain, split_ranges, valid_key_rows)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -260,3 +260,63 @@ def test_tiered_split_merge_edge_splits(hot_len, cold_len, newest, n_split):
     assert torch.isfinite(got).all()
     if hot_len + cold_len == 0:
         assert not got.any()
+
+
+def test_tiered_kernel_takes_every_gqa_layer_of_every_config():
+    """Every GQA layer (full or windowed) of every config of the JAX package
+    has a group and head dim the kernel is built for."""
+    import repro.configs as jcfgs
+    from repro.models.lm import layer_specs
+
+    seen = set()
+    for arch in jcfgs.ARCH_IDS:
+        cfg = jcfgs.get_config(arch)
+        if any(spec.mixer == "gqa" for spec in layer_specs(cfg)):
+            g, d = cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
+            assert cfg.n_heads % cfg.n_kv_heads == 0 and g in GROUPS and d in HEAD_DIMS, (arch, g, d)
+            seen.add((g, d))
+    assert {(6, 128), (7, 64), (12, 128), (16, 256), (4, 256)} <= seen
+
+
+@pytest.mark.parametrize("group", GROUPS)
+def test_tiered_head_tiles_and_one_wave(group):
+    """The head tiles of each group: a built width, as few tiles as the widest
+    build allows, at most one padded head up to G = 8; and the planner's
+    splits over B x KV x tiles rows stay in one wave of the resident blocks."""
+    gt, tiles = head_tile(group)
+    assert gt in HEAD_TILES and tiles == -(-group // gt) == -(-group // HEAD_TILES[-1])
+    assert tiles * gt - group <= (1 if group <= 8 else 3)
+    assert blocks_per_sm(group) == (2 if gt <= 4 else 1)
+    for b, kv, n_keys in ((4, 8, 1088), (4, 1, 8192), (1, 2, 300)):
+        rows = b * kv * tiles
+        n_split = plan_splits(n_keys, rows, sms=132, per_sm=blocks_per_sm(group))
+        assert n_split == 1 or (rows * n_split <= blocks_per_sm(group) * 132 and n_keys // n_split >= 64)
+
+
+def test_tiered_launcher_refuses_unbuilt_shapes():
+    """A group above 16, a group that does not divide, or a head dim not
+    built raises before any device is touched: there is no fallback."""
+    from repro_torch.kernels.tiered_decode import tiered_decode_attention_fwd
+
+    for h, kv, d in [(17, 1, 64), (34, 2, 64), (6, 4, 64), (4, 1, 48), (4, 1, 512)]:
+        z = lambda *s: torch.zeros(s)
+        with pytest.raises(ValueError, match="built for"):
+            tiered_decode_attention_fwd(z(1, h, 1, d), z(1, kv, 8, d), z(1, kv, 8, d), z(1, kv, 8, d), z(1, kv, 8, d),
+                                        4, 4, 3)
+
+
+@pytest.mark.parametrize("h,kv,d", [(5, 1, 16), (12, 2, 64), (14, 2, 32), (16, 1, 256)])
+def test_tiered_split_merge_matches_jax_at_other_groups(h, kv, d):
+    """The split-then-merge arithmetic and the op's plain version at groups
+    and head dims beyond qwen3's, against the JAX oracle and the Pallas
+    kernel in interpret mode (fp32)."""
+    hot_len, cold_len, newest = 12, 40, 3
+    rng = np.random.default_rng(8)
+    (qj, qt), (hkj, hkt), (hvj, hvt), (ckj, ckt), (cvj, cvt) = (
+        pair(rng, sh) for sh in ((1, h, 1, d), (1, kv, 16, d), (1, kv, 16, d), (1, kv, 64, d), (1, kv, 64, d)))
+    want = jref.tiered_ring_attention_ref(qj, hkj, hvj, ckj, cvj, hot_len, cold_len, newest)
+    assert_close(split_merge_plain(qt, hkt, hvt, ckt, cvt, hot_len, cold_len, newest, 3), want, "float32")
+    assert_close(ops.tiered_decode_attention(qt, hkt, hvt, ckt, cvt, hot_len, cold_len, newest), want, "float32")
+    assert_close(ops.tiered_decode_attention(qt, hkt, hvt, ckt, cvt, hot_len, cold_len, newest),
+                 jax_tiered(qj, hkj, hvj, ckj, cvj, hot_len=hot_len, cold_len=cold_len, ring_newest=newest,
+                            block_k=32, interpret=True), "float32")
