@@ -6,7 +6,7 @@
 Phases, each printing one JSON line (``{"phase": ...}``):
 
 1. device        the card's name, and its name and power limit from nvidia-smi
-2. build         the four CUDA kernels built by nvcc for sm_90a from
+2. build         the four CUDA sources built by nvcc for sm_90a from
                  src/repro_torch/csrc, one nvcc per source, all started together
 3. tiered_decode the decode kernel against its plain version at the serving
                  shape (B=4, H=32, KV=8, D=128, W=256, C=1024), at the edge
@@ -19,6 +19,14 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                  of every group 1..16 and head dim 16..256 the kernel takes
                  (20 shapes at B=2, W=16, C=64, each at six edge cases, in
                  bf16 and fp32), error only
+3b. tiered_decode_rows  the per-row entry (N sessions, each its own ring,
+                 staging buffer of its own capacity and lengths) against its
+                 plain version at qwen3-8b's H/KV/D 32/8/128, W=256: four rows
+                 of capacities 1024/896/512/128 (both tiers, a wrapped ring,
+                 cold only, hot only), the four rows serve_sessions gives, and
+                 those with a row of no key, also at G 1, 6, 12 and D 64, 256,
+                 each in bf16 and fp32; the op's ms (both launches), the same
+                 rows as single-row launches, plain / SDPA ms and the bound
 4. flash         the flash kernel against its plain version at S=T=1024 causal,
                  T > S, window 64, softcap 30, ragged S=200, rows with no key
                  (T < S, at D=32 and D=128), D=64, recurrentgemma's D=256 MQA
@@ -47,6 +55,16 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                  to those of the run without the round trip; then one layer's
                  host tier lost and restored from the
                  store; persist MB/s, evict / resume / restore s, decode tok/s
+8c. serve_sessions  qwen3-8b, 36 layers, bf16, through the session plane
+                 (``repro_torch.serving.SessionScheduler``): 8 sessions of
+                 prompt 1024 sharing their first 512 tokens, 32 new tokens,
+                 max_batch 4, a store under build/; a control run, then the
+                 same schedule under device and host budgets with a memory
+                 arbiter: equal tokens, demotions, evictions and resumes,
+                 pages stored once (dedup), one per-row launch a layer a
+                 decode step and no single-row one, the pools released
+8d. serve_sessions_check  2 qwen3 layers at full width in fp32, 4 sessions:
+                 kernel tokens equal plain tokens
 9. serve_recurrentgemma  recurrentgemma-9b, 38 layers, bf16, through
                  ``steps.dense_serve_loop`` (batch 4, prompt 4096, 64 new tokens),
                  then profiled
@@ -60,7 +78,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 
 Each serve phase zeroes the kernels' launch counts just before it serves and
 reads them just after, and asserts them, and that every bf16 flash launch
-took the tensor-core kernel.  Every phase runs, at the configs' full depth.  The nvidia-smi line comes
+took the tensor-core kernel (serve_sessions: before each of its two runs).  Every phase runs, at the configs' full depth.  The nvidia-smi line comes
 first; the last line is the contract line ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it, as does a machine without CUDA or a
 directory without the repository's sources.
@@ -273,6 +291,113 @@ def tiered_sweep(record: dict, sms: int) -> None:
             emit("tiered_decode_sweep", **row)
             record.setdefault("tiered_decode_sweep", []).append(row)
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------------------ tiered decode rows
+
+
+# Rows of the per-row entry at qwen3-8b's ring of 256: (staging capacity C_i,
+# hot_len, cold_len, newest).  "sessions_rows", first as the shape the main
+# path gives the kernel: what serve_sessions' decode gives four sessions
+# (prompt 1024 plus 1-32 tokens at page 128: cold 896 of a 1024-row buffer,
+# hot 129-160 with the ring wrapped); "serve_rows": four capacities, one row
+# with both tiers, one with a wrapped ring, one cold only, one hot only;
+# "rows_no_key": serve_rows and a row with no key, also at the other groups
+# and head dims.
+ROWS_W = 256
+ROWS_MIXED = [(1024, 192, 896, 63), (896, 256, 640, 100), (512, 0, 512, 63), (128, 200, 0, 199)]
+ROWS_SESSIONS = [(1024, hot, 896, (896 + hot - 1) % ROWS_W) for hot in (160, 150, 140, 130)]
+ROWS_NO_KEY = ROWS_MIXED + [(128, 0, 0, 0)]
+
+
+def tiered_rows_phase(record: dict) -> None:
+    """The per-row entry against ``ref.tiered_rows_attention_ref``; at each
+    case the whole op's ms (both launches, one C call on pre-made
+    arguments), the same rows as one single-row launch each, the plain
+    version, SDPA over the rows stacked and padded with a boolean mask, and
+    the bound of the valid keys' bytes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import load
+    from repro_torch.kernels.tiered_decode import (_DTYPES, blocks_per_sm, head_tile, plan_splits, rows_launch_args,
+                                                   rows_plan, tiered_decode_rows_fwd)
+
+    qwen = (32, 8, 128)
+    shapes = [("sessions_rows", qwen, ROWS_SESSIONS), ("serve_rows", qwen, ROWS_MIXED),
+              ("rows_no_key", qwen, ROWS_NO_KEY)]
+    shapes += [(f"h{h}_kv{kv}_d{d}_rows_no_key", (h, kv, d), ROWS_NO_KEY)
+               for h, kv, d in ((8, 8, 128), (48, 8, 128), (24, 2, 128), (32, 8, 64), (16, 4, 256))]
+    cases = [(name if dt == "bfloat16" else name + "_fp32", dt, *rest) for dt in DTYPES for name, *rest in shapes]
+    lib = load("tiered_decode")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    stream = torch.cuda.current_stream().cuda_stream
+    copies = 4  # rotated input sets, as in the tiered_decode phase
+    for name, dt_name, (H, KV, D), rows in cases:
+        dt = getattr(torch, dt_name)
+        rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+        lens = [r[1:] for r in rows]
+        sets = [(rnd(len(rows), H, 1, D), [rnd(1, KV, ROWS_W, D) for _ in rows], [rnd(1, KV, ROWS_W, D) for _ in rows],
+                 [rnd(1, KV, c, D) for c, *_ in rows], [rnd(1, KV, c, D) for c, *_ in rows]) for _ in range(copies)]
+        got = tiered_decode_rows_fwd(*sets[0], lens)
+        want = ref.tiered_rows_attention_ref(*sets[0], lens)
+        torch.cuda.synchronize()
+        err, ok = within_tol(got, want, dt_name)
+
+        _, n_split = rows_plan(*sets[0], lens)
+        N, G = len(rows), H // KV
+        gt, tiles = head_tile(G)
+        outs = [torch.empty_like(s[0]) for s in sets]
+        scratch = torch.empty(N * H * n_split * (D + 2), dtype=torch.float32, device="cuda")
+        raw = [rows_launch_args(*s, lens, n_split, o, scratch) for s, o in zip(sets, outs)]
+        it = iter(range(1 << 30))
+        ms = time_ms(lambda: lib.tiered_decode_rows_launch(*raw[next(it) % copies]), iters=40)
+
+        # The same rows as N single-row launches of the batch entry (B = 1,
+        # each row at its own planned split count), one after another.
+        singles = []
+        for s, o in zip(sets, outs):
+            calls = []
+            for i, (c, hot_len, cold_len, newest) in enumerate(rows):
+                ns = plan_splits(hot_len + cold_len, KV * tiles, sms, blocks_per_sm(G))
+                sc = torch.empty(H * ns * (D + 2), dtype=torch.float32, device="cuda")
+                calls.append((s[0][i:i + 1].data_ptr(), s[1][i].data_ptr(), s[2][i].data_ptr(), s[3][i].data_ptr(),
+                              s[4][i].data_ptr(), o[i:i + 1].data_ptr(), sc.data_ptr(), 1, H, KV, ROWS_W, c, D,
+                              hot_len, cold_len, newest, ns, gt, _DTYPES[dt], stream, sc))
+            singles.append(calls)
+        single_ms = time_ms(lambda: [lib.tiered_decode_launch(*c[:-1]) for c in singles[next(it) % copies]], iters=40)
+        plain_ms = time_ms(lambda: ref.tiered_rows_attention_ref(*sets[next(it) % copies], lens), iters=10)
+
+        # Yardstick only: SDPA over the rows stacked (cold padded to the
+        # largest capacity, then the ring) with each row's mask.
+        cmax = max(c for c, *_ in rows)
+        pad = lambda t: F.pad(t, (0, 0, 0, cmax - t.shape[2]))
+        age = torch.remainder(torch.tensor([r[3] for r in rows], device="cuda")[:, None]
+                              - torch.arange(ROWS_W, device="cuda"), ROWS_W)
+        mask = torch.cat([torch.arange(cmax, device="cuda") < torch.tensor([r[2] for r in rows], device="cuda")[:, None],
+                          age < torch.tensor([r[1] for r in rows], device="cuda")[:, None]], 1)[:, None, None, :]
+        lib_in = [(s[0], torch.cat([torch.cat([pad(t) for t in s[3]]), torch.cat(s[1])], 2),
+                   torch.cat([torch.cat([pad(t) for t in s[4]]), torch.cat(s[2])], 2)) for s in sets]
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            *lib_in[next(it) % copies], attn_mask=mask, enable_gqa=True))
+
+        isz = torch.finfo(dt).bits // 8
+        n_keys = sum(r[1] + r[2] for r in rows)
+        bound_ms, bound_by = bound(2 * KV * n_keys * D * isz + 2 * N * H * D * isz, 4 * H * n_keys * D, dt_name)
+        row = dict(case=name, dtype=dt_name, H=H, KV=KV, D=D, G=G, head_tile=gt, rows=rows, n_keys=n_keys,
+                   n_split=n_split, blocks=N * KV * tiles * n_split, max_abs_err=err, tol=TOL[dt_name], ok=ok, ms=ms,
+                   single_row_launches_ms=single_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        emit("tiered_decode_rows", **row)
+        if not ok:
+            raise AssertionError(f"tiered_decode_rows {name}: not within rtol=atol={TOL[dt_name]} "
+                                 f"(max abs err {err})")
+        if row["blocks"] > sms * blocks_per_sm(G):
+            raise AssertionError(f"tiered_decode_rows {name}: {row['blocks']} pass-1 blocks are more than one wave")
+        record.setdefault("tiered_decode_rows", []).append(row)
+        del sets, lib_in, outs, scratch, singles
 
 
 # ------------------------------------------------------------------------ flash
@@ -711,6 +836,246 @@ def serve_store_phase(record: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ session serving
+
+
+class LogitsTap:
+    """The model, with every ``decode_step``'s last-position logits kept on
+    the device: with random weights the greedy tokens barely vary, so two
+    runs of one schedule are held to each other logits for logits."""
+
+    def __init__(self, model):
+        self.model, self.logits = model, []
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def decode_step(self, params, token, caches):
+        logits, caches = self.model.decode_step(params, token, caches)
+        self.logits.append(logits[:, -1, :])
+        return logits, caches
+
+
+def logits_apart(a: list, b: list) -> tuple[bool, float, float]:
+    """(bit-identical, max abs difference, that over the largest |logit| of
+    ``b``) of two runs' per-dispatch logits; inf when the dispatches differ
+    in number or batch."""
+    import torch
+
+    if len(a) != len(b) or any(x.shape != y.shape for x, y in zip(a, b)):
+        return False, float("inf"), float("inf")
+    diff = max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+    return all(torch.equal(x, y) for x, y in zip(a, b)), diff, diff / max(float(y.abs().max()) for y in b)
+
+
+def drive_sessions(sched, prompts, tokens: int, after_first_step=None) -> tuple[list[list[int]], int]:
+    """Submit ``prompts`` and step ``sched`` until every session retires;
+    ``after_first_step(sched)`` runs once after the first step.  Returns
+    (each session's tokens, the decode dispatches: steps with a batch)."""
+    sids = [sched.submit(p, tokens) for p in prompts]
+    dispatches = 0
+    while True:
+        info = sched.step()
+        dispatches += info["batch"] > 0
+        if after_first_step is not None:
+            after_first_step(sched)
+            after_first_step = None
+        if not info["queued"] and not info["live"]:
+            return [sched.session_tokens(s) for s in sids], dispatches
+
+
+def serve_sessions_phase(record: dict, out_dir: Path | None) -> None:
+    """qwen3-8b at full width and depth, bf16, through the session plane: 8
+    sessions of prompt 1024 whose first 512 tokens are shared, 32 new tokens
+    each, max_batch 4, 2 admitted a step, kv window 256, page 128, a
+    ``TwoLevelStore`` under build/ (removed after).  A control run without
+    budgets, then the same schedule under a device budget of 4.5 sessions'
+    device bytes and a host budget of 6 sessions' host bytes (measured on
+    the control run after its first step) with a ``MemoryArbiter``.  Then,
+    outside the counted runs, 8 profiled decode steps of 4 admitted sessions
+    (no budgets, no store)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, make_model
+    from repro_torch.core import TwoLevelStore
+    from repro_torch.core.arbiter import MemoryArbiter
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import init_params
+    from repro_torch.serving import SessionScheduler
+
+    n, prompt_len, shared_len, tokens, window, page = 8, 1024, 512, 32, 256, 128
+    cfg = dataclasses.replace(get_config("qwen3_8b"), attn_impl="flash", scan_layers=False)
+    layers = cfg.n_layers
+    model = make_model(cfg)
+    params = init_params(model, seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab, shared_len)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, prompt_len - shared_len)]).astype(np.int32)
+               for _ in range(n)]
+    (ROOT / "build").mkdir(exist_ok=True)
+    per_session = {}
+
+    def measure(sched) -> None:  # one admitted session's bytes after the first step
+        caches = list(sched._sessions[0].caches.values())
+        per_session.update(device=sum(c.device_bytes() for c in caches), host=sum(c.host_bytes() for c in caches))
+
+    def run(budgets: dict | None, arbiter=None) -> dict:
+        root = tempfile.mkdtemp(prefix="serve_sessions_", dir=ROOT / "build")
+        store = TwoLevelStore(root)
+        try:
+            tap = LogitsTap(model)
+            sched = SessionScheduler(tap, cfg, params, window=window, page=page, max_batch=4, admit_per_step=2,
+                                     store=store, arbiter=arbiter, device="cuda", **(budgets or {}))
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            toks, dispatches = drive_sessions(sched, prompts, tokens, None if budgets else measure)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            out = dict(tokens=toks, logits=tap.logits, dispatches=dispatches, seconds=seconds, report=sched.report(),
+                       launches=ops.launches(), flash_paths=ops.flash_path_launches(),
+                       rows_launches=ops.tiered_decode_rows_attention.launches)
+            releases = arbiter.releases if arbiter is not None else 0
+            sched.close()
+            if arbiter is not None:
+                out["pools_released"] = arbiter.releases - releases == 2 and not (
+                    {"serve_hbm", "serve_host"} & set(arbiter.report()["pools"]))
+            return out
+        finally:
+            store.close()
+            shutil.rmtree(root, ignore_errors=True)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    control = run(None)
+    budgets = dict(hbm_bytes=int(4.5 * per_session["device"]), host_bytes=6 * per_session["host"])
+    pressed = run(budgets, MemoryArbiter(total_bytes=64 << 30))
+    rc, rp = control["report"], pressed["report"]
+    row = dict(arch=cfg.name, layers=layers, sessions=n, prompt_len=prompt_len, shared_prefix=shared_len,
+               tokens=tokens, max_batch=4, admit_per_step=2, kv_window=window, kv_page=page,
+               session_device_bytes=per_session["device"], session_host_bytes=per_session["host"], **budgets,
+               peak_device_bytes=torch.cuda.max_memory_allocated())
+    for name, r in (("control", control), ("pressed", pressed)):
+        rep = r["report"]
+        row[name] = dict(seconds=r["seconds"], dispatches=r["dispatches"], launches=r["launches"],
+                         rows_launches=r["rows_launches"], flash_paths=r["flash_paths"],
+                         **{k: rep[k] for k in ("steps", "prefills", "decoded_tokens", "prefill_s", "decode_s",
+                                                "decode_tok_per_s", "ttft_p50_s", "ttft_p99_s", "evictions",
+                                                "resumes", "demotions", "pages_logical", "pages_stored",
+                                                "dedup_ratio")})
+    row["tokens_equal"] = control["tokens"] == pressed["tokens"]
+    row["distinct_tokens"] = len({t for toks in control["tokens"] for t in toks})
+    # Demotion, eviction and resume move bytes only: each dispatch has the
+    # same rows, keys and split plan in both runs, so its logits (every
+    # layer's attention over the re-staged or resumed tiers feeds them) are
+    # bit-identical.
+    row["logits_equal"], row["logits_max_abs_diff"], _ = logits_apart(pressed["logits"], control["logits"])
+    row["logits_dispatches_compared"] = len(control["logits"])
+    row["pools_released"] = pressed["pools_released"]
+    row["seconds"] = time.perf_counter() - t_phase
+    emit("serve_sessions", **row)
+    faults = []
+    if not row["tokens_equal"] or not row["logits_equal"]:
+        faults.append(f"tokens equal {row['tokens_equal']}, logits equal {row['logits_equal']} (max abs diff "
+                      f"{row['logits_max_abs_diff']}) between the control and the pressed run")
+    if min(rp["demotions"], rp["evictions"], rp["resumes"]) < 1:
+        faults.append(f"pressed run: demotions {rp['demotions']}, evictions {rp['evictions']}, "
+                      f"resumes {rp['resumes']}")
+    for name, r in (("control", control), ("pressed", pressed)):
+        rep = r["report"]
+        if rep["decoded_tokens"] != n * (tokens - 1) or rep["prefills"] != n:
+            faults.append(f"{name}: {rep['decoded_tokens']} tokens decoded, {rep['prefills']} prefills")
+        want = {"tiered_decode": 0, "flash_attention": layers * n, "rglru": 0, "mlstm": 0}
+        if r["launches"] != want or r["rows_launches"] != layers * r["dispatches"] or not r["dispatches"]:
+            faults.append(f"{name}: launches {r['launches']} (want {want}), rows {r['rows_launches']} "
+                          f"(want {layers} x {r['dispatches']} dispatches)")
+        if r["flash_paths"] != {"tensor_core": layers * n, "cuda_core": 0}:
+            faults.append(f"{name}: bf16 flash launches off the tensor-core path: {r['flash_paths']}")
+        if any(len(t) != tokens or min(t) < 0 or max(t) >= cfg.vocab for t in r["tokens"]):
+            faults.append(f"{name}: bad generated tokens")
+    per_layer_pages = prompt_len // page  # the 32 new tokens complete no page
+    shared_pages = shared_len // page
+    if rc["pages_logical"] != layers * n * per_layer_pages or \
+            rc["pages_stored"] != layers * (shared_pages + n * (per_layer_pages - shared_pages)):
+        faults.append(f"control: pages {rc['pages_logical']} logical / {rc['pages_stored']} stored")
+    if rp["pages_stored"] != rc["pages_stored"] or rc["dedup_ratio"] < 1.3:
+        faults.append(f"pressed: {rp['pages_stored']} pages stored; control dedup {rc['dedup_ratio']}")
+    if not row["pools_released"]:
+        faults.append("arbiter pools not released by close()")
+    if faults:
+        raise AssertionError("serve_sessions: " + "; ".join(faults))
+    both = lambda key: {k: control[key][k] + pressed[key][k] for k in control[key]}
+    record["serve_sessions"] = dict(row, launches=both("launches"), flash_paths=both("flash_paths"),
+                                    rows_launches=control["rows_launches"] + pressed["rows_launches"])
+    del control, pressed
+
+    sched = SessionScheduler(model, cfg, params, window=window, page=page, max_batch=4, admit_per_step=4,
+                             device="cuda")
+    for p in prompts[:4]:
+        sched.submit(p, tokens)
+    sched.step()  # the 4 prefills and one decode step, outside the profile
+    table = out_dir / "profile_serve_sessions_decode_8_steps.txt" if out_dir else None
+    emit("serve_sessions_profile", part="decode_8_steps",
+         **profile_breakdown(lambda: [sched.step() for _ in range(8)], table))
+    sched.close()
+    del params
+    torch.cuda.empty_cache()
+
+
+def serve_sessions_check_phase(record: dict) -> None:
+    """2 qwen3 layers at full width in fp32, 4 sessions (prompt 300, 16 new
+    tokens, window 128, page 64, admitted 2 a step so they sit at different
+    lengths): tokens through the kernels (per-row decode, flash prefill)
+    equal tokens through the plain versions, and every decode dispatch's
+    logits agree within the fp32 tolerance as a relative error (max abs
+    difference over the largest |logit|)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, make_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import init_params
+    from repro_torch.serving import SessionScheduler
+
+    t0 = time.perf_counter()
+    n, prompt_len, tokens, window, page = 4, 300, 16, 128, 64
+    base = dataclasses.replace(get_config("qwen3_8b"), n_layers=2, dtype="float32", scan_layers=False)
+    params = init_params(make_model(base), seed=1, device="cuda")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, base.vocab, prompt_len).astype(np.int32) for _ in range(n)]
+    out, logits, rows_launches = {}, {}, 0
+    for impl, attn_impl in (("kernel", "flash"), ("plain", "xla")):
+        cfg = dataclasses.replace(base, attn_impl=attn_impl)
+        tap = LogitsTap(make_model(cfg))
+        sched = SessionScheduler(tap, cfg, params, window=window, page=page, max_batch=4,
+                                 dtype=torch.float32, device="cuda", impl=impl)
+        ops.reset_launches()
+        out[impl], dispatches = drive_sessions(sched, prompts, tokens)
+        logits[impl] = tap.logits
+        if impl == "kernel":
+            rows_launches = ops.tiered_decode_rows_attention.launches
+            if rows_launches != base.n_layers * dispatches or ops.launches()["tiered_decode"]:
+                raise AssertionError(f"serve_sessions_check: {rows_launches} rows launches for {dispatches} "
+                                     f"dispatches, {ops.launches()}")
+        sched.close()
+    same = out["kernel"] == out["plain"]
+    _, diff, rel = logits_apart(logits["kernel"], logits["plain"])
+    emit("serve_sessions_check", layers=2, dtype="float32", sessions=n, prompt_len=prompt_len, tokens=tokens,
+         kv_window=window, kv_page=page, rows_launches=rows_launches, tokens_equal=same,
+         logits_dispatches_compared=len(logits["plain"]), logits_max_abs_diff=diff, logits_rel_err=rel,
+         tol=TOL["float32"], distinct_tokens=len({t for toks in out["kernel"] for t in toks}),
+         kernel_session0=out["kernel"][0], seconds=time.perf_counter() - t0)
+    if not same or not rel <= TOL["float32"]:
+        raise AssertionError(f"serve_sessions_check: kernel tokens equal plain tokens {same}; decode logits "
+                             f"relative error {rel} (tolerance {TOL['float32']})")
+    record["serve_sessions_check"] = same
+    del params
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ recurrent serve
 
 
@@ -821,7 +1186,7 @@ def recurrent_serve_check_phase(record: dict, arch: str, B: int, prompt_len: int
 # ------------------------------------------------------------------------- main
 
 
-SERVE_PHASES = ("serve", "serve_store", "serve_recurrentgemma", "serve_xlstm")
+SERVE_PHASES = ("serve", "serve_store", "serve_sessions", "serve_recurrentgemma", "serve_xlstm")
 
 
 def kernels_line(record: dict) -> dict:
@@ -830,6 +1195,7 @@ def kernels_line(record: dict) -> dict:
     over all its cases, and the times and bound of its first case, the
     shape its main path gives it."""
     out = []
+    rows_by_phase = {p: record[p]["rows_launches"] for p in SERVE_PHASES if record[p].get("rows_launches")}
     for name, phase, source, replaces in (
         ("tiered_decode", "tiered_decode", "src/repro_torch/csrc/tiered_decode.cu",
          "src/repro/kernels/tiered_decode.py:133"),
@@ -850,11 +1216,23 @@ def kernels_line(record: dict) -> dict:
                      bound_by=main["bound_by"], library_ms=main["library_ms"])
         if name == "tiered_decode":
             entry.update(groups=sorted({r["G"] for r in rows}), head_dims=sorted({r["D"] for r in rows}),
-                         shapes_run=sorted({(r["G"], r["D"]) for r in rows}))
+                         shapes_run=sorted({(r["G"], r["D"]) for r in rows}),
+                         rows_launches_by_phase=rows_by_phase)
         if name == "flash_attention":
             entry.update(path=main["path"], library_masked_ms=main["library_masked_ms"],
                          tensor_core_launches=sum(record[p]["flash_paths"]["tensor_core"] for p in SERVE_PHASES))
         out.append(entry)
+    # The per-row entry of the same source: one launch a layer a session
+    # decode step, standing in for the JAX session plane's vmapped oracle.
+    rows = record["tiered_decode_rows"]
+    main = rows[0]
+    out.insert(1, dict(name="tiered_decode_rows", route="cuda", source="src/repro_torch/csrc/tiered_decode.cu",
+                       replaces="src/repro/kernels/tiered_decode.py:133",
+                       stands_for="src/repro/serving/scheduler.py:64 (jax.vmap of the oracle, no Pallas kernel)",
+                       launches=sum(rows_by_phase.values()), launches_by_phase=rows_by_phase,
+                       max_abs_err=max(r["max_abs_err"] for r in rows), ms=main["ms"], plain_ms=main["plain_ms"],
+                       bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=main["library_ms"],
+                       single_row_launches_ms=main["single_row_launches_ms"]))
     return {"kernels": out}
 
 
@@ -897,12 +1275,15 @@ def main() -> int:
             if log.exists():
                 shutil.copy(log, out_dir / f"ptxas_{p.stem}.log")
     tiered_decode_phase(record)
+    tiered_rows_phase(record)
     flash_phase(record)
     rglru_phase(record)
     mlstm_phase(record)
     serve_phase(record, out_dir)
     serve_check_phase(record)
     serve_store_phase(record)
+    serve_sessions_phase(record, out_dir)
+    serve_sessions_check_phase(record)
     recurrent_serve_phase(record, out_dir, "recurrentgemma_9b", B=4, prompt_len=4096, tokens=64)
     recurrent_serve_phase(record, out_dir, "xlstm_125m", B=4, prompt_len=2048, tokens=64)
     recurrent_serve_check_phase(record, "recurrentgemma_9b", B=2, prompt_len=2100, tokens=16)

@@ -52,6 +52,20 @@
 //     itself and pass 2 is not launched;
 //   * hot_len, cold_len and newest are plain arguments (the host knows them
 //     each step), so nothing is read before the first K/V load.
+//
+// The per-row entry (tiered_decode_rows_launch) serves N sessions at N
+// different lengths in one op, as the session scheduler's batched decode
+// needs (the reference vmaps its oracle there instead:
+// src/repro/serving/scheduler.py:64).  Each session's ring and staging
+// buffers are separate allocations of different capacities C_i, so the
+// kernel reads each row where it lies: stacking them on the card would copy
+// all the K/V a decode step reads (about 4.4 MB a session a layer for
+// qwen3-8b) to read it once.  Row i's four base pointers, C_i and lengths
+// come from a table passed by value as a __grid_constant__ parameter (no
+// copy to the device, no synchronisation per launch); every row splits its
+// own valid keys into the n_split ranges (planned from the longest row), so
+// all splits of a long row have work; pass 1's body and pass 2 are the batch
+// entry's.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -115,25 +129,24 @@ constexpr size_t partial_smem_bytes() {
   return (size_t)kWarps * GT * (D + 2) * sizeof(float);
 }
 
-// Pass 1: block (bk, split, t) folds its key range for the heads of tile t of
-// kv head bk.  Two blocks an SM up to GT = 4 (at most 128 registers
-// a thread), one above (its GT x 16-byte q and accumulator slices take ~216);
-// the wrapper's split planner counts the same (kernels/tiered_decode.py::
-// blocks_per_sm).
+// Pass 1's body: block (bk, split, t) folds its key range for the heads of
+// tile t of kv head bk.  hot_k / hot_v point at the (W, D) ring of that kv
+// head, cold_k / cold_v at its (C, D) staging rows; q, out and the partials
+// are indexed by bk.  Both entries' pass-1 kernels below run it.
 template <typename T, int D, int GT>
-__global__ void __launch_bounds__(kWarps * 32, GT <= 4 ? 2 : 1)
-tiered_partial_kernel(const T* __restrict__ q, const T* __restrict__ hot_k,
-                      const T* __restrict__ hot_v, const T* __restrict__ cold_k,
-                      const T* __restrict__ cold_v, T* __restrict__ out,
-                      float* __restrict__ part_ml, float* __restrict__ part_acc, int G, int W,
-                      int C, int hot_len, int cold_len, int newest, float scale_log2) {
+__device__ __forceinline__ void fold_keys(const T* __restrict__ q, const T* __restrict__ hot_k,
+                                          const T* __restrict__ hot_v, const T* __restrict__ cold_k,
+                                          const T* __restrict__ cold_v, T* __restrict__ out,
+                                          float* __restrict__ part_ml, float* __restrict__ part_acc,
+                                          int bk, int G, int W, int hot_len, int cold_len, int newest,
+                                          float scale_log2) {
   using L = RowLayout<T, D>;
   constexpr int EPL = L::EPL, LPK = L::LPK, NV = L::NV, EL = L::EL;
   constexpr int KPW = 32 / LPK;              // keys per warp load
   constexpr int NS = kWarps * KPW;           // key streams per block
   constexpr int U = (GT <= 4 ? 4 : 2) / NV > 0 ? (GT <= 4 ? 4 : 2) / NV : 1;  // keys a stream issues ahead
   constexpr int SLICE = LPK * EPL;           // elements between a lane's slices
-  const int bk = blockIdx.x, h0 = blockIdx.z * GT;
+  const int h0 = blockIdx.z * GT;
   const int nh = min(GT, G - h0);            // heads of this tile; the rest are padding
   const int split = blockIdx.y, n_split = gridDim.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -163,10 +176,10 @@ tiered_partial_kernel(const T* __restrict__ q, const T* __restrict__ hot_k,
   }
 
   const size_t row_bytes = (size_t)D * sizeof(T);
-  const char* ck = reinterpret_cast<const char*>(cold_k + (size_t)bk * C * D) + col * sizeof(T);
-  const char* cv = reinterpret_cast<const char*>(cold_v + (size_t)bk * C * D) + col * sizeof(T);
-  const char* hk = reinterpret_cast<const char*>(hot_k + (size_t)bk * W * D) + col * sizeof(T);
-  const char* hv = reinterpret_cast<const char*>(hot_v + (size_t)bk * W * D) + col * sizeof(T);
+  const char* ck = reinterpret_cast<const char*>(cold_k) + col * sizeof(T);
+  const char* cv = reinterpret_cast<const char*>(cold_v) + col * sizeof(T);
+  const char* hk = reinterpret_cast<const char*>(hot_k) + col * sizeof(T);
+  const char* hv = reinterpret_cast<const char*>(hot_v) + col * sizeof(T);
 
   // The loop runs per warp (its streams shuffle together); a stream's keys
   // past k1 are missing: a valid row stands in for their loads, and their
@@ -298,6 +311,54 @@ tiered_partial_kernel(const T* __restrict__ q, const T* __restrict__ hot_k,
   }
 }
 
+// Pass 1 of the batch entry: every row b of the batch at the same lengths;
+// block (bk, split, t) takes kv head bk of the (B * KV) rows.  Two blocks an
+// SM up to GT = 4 (at most 128 registers a thread), one above (its GT x
+// 16-byte q and accumulator slices take ~216); the wrapper's split planner
+// counts the same (kernels/tiered_decode.py::blocks_per_sm).
+template <typename T, int D, int GT>
+__global__ void __launch_bounds__(kWarps * 32, GT <= 4 ? 2 : 1)
+tiered_partial_kernel(const T* __restrict__ q, const T* __restrict__ hot_k,
+                      const T* __restrict__ hot_v, const T* __restrict__ cold_k,
+                      const T* __restrict__ cold_v, T* __restrict__ out,
+                      float* __restrict__ part_ml, float* __restrict__ part_acc, int G, int W,
+                      int C, int hot_len, int cold_len, int newest, float scale_log2) {
+  const size_t bk = blockIdx.x;
+  fold_keys<T, D, GT>(q, hot_k + bk * W * D, hot_v + bk * W * D, cold_k + bk * C * D, cold_v + bk * C * D,
+                      out, part_ml, part_acc, (int)bk, G, W, hot_len, cold_len, newest, scale_log2);
+}
+
+// The per-row entry's table, passed by value as a __grid_constant__ kernel
+// parameter (3,072 bytes at kMaxRows = 64, under the 4 KB that every CUDA 12
+// takes): row i's ring and staging buffers (each its own allocation, read
+// where it lies), its staging capacity C_i and its three lengths.  No
+// host-to-device copy and no synchronisation per launch.
+constexpr int kMaxRows = 64;
+struct RowTable {
+  const void* hot_k[kMaxRows];
+  const void* hot_v[kMaxRows];
+  const void* cold_k[kMaxRows];
+  const void* cold_v[kMaxRows];
+  int cap[kMaxRows];
+  int hot_len[kMaxRows];
+  int cold_len[kMaxRows];
+  int newest[kMaxRows];
+};
+
+// Pass 1 of the per-row entry: block (bk, split, t) takes kv head bk % KV of
+// row bk / KV, which splits its own valid keys into the n_split ranges.
+template <typename T, int D, int GT>
+__global__ void __launch_bounds__(kWarps * 32, GT <= 4 ? 2 : 1)
+tiered_rows_partial_kernel(const T* __restrict__ q, const __grid_constant__ RowTable rows,
+                           T* __restrict__ out, float* __restrict__ part_ml, float* __restrict__ part_acc,
+                           int KV, int G, int W, float scale_log2) {
+  const int bk = blockIdx.x, r = bk / KV, kvh = bk % KV;
+  const size_t hot_off = (size_t)kvh * W * D, cold_off = (size_t)kvh * rows.cap[r] * D;
+  fold_keys<T, D, GT>(q, (const T*)rows.hot_k[r] + hot_off, (const T*)rows.hot_v[r] + hot_off,
+                      (const T*)rows.cold_k[r] + cold_off, (const T*)rows.cold_v[r] + cold_off, out, part_ml,
+                      part_acc, bk, G, W, rows.hot_len[r], rows.cold_len[r], rows.newest[r], scale_log2);
+}
+
 // Pass 2: merge the n_split partials of each (b, query head) row.
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
@@ -321,30 +382,49 @@ tiered_merge_kernel(const float* __restrict__ part_ml, const float* __restrict__
   }
 }
 
+// Opt ``kernel`` into ``smem`` bytes of dynamic shared memory, once a device
+// (``opted_in``, bit i: device i): above 48 KB a block gets shared memory
+// only as opted-in dynamic shared memory.
+template <typename K>
+cudaError_t opt_in_smem(K kernel, size_t smem, std::atomic<unsigned long long>& opted_in) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(opted_in.load(std::memory_order_relaxed) & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    opted_in.fetch_or(bit, std::memory_order_relaxed);
+  }
+  return cudaSuccess;
+}
+
+// Pass 1 over B rows: the batch entry's (rows == nullptr; lengths and C from
+// the arguments) or the per-row entry's (the B = N rows of the table).
 template <typename T, int D, int GT>
 cudaError_t launch_tile(const void* q, const void* hk, const void* hv, const void* ck,
                         const void* cv, void* out, float* part_ml, float* part_acc, int B, int KV,
                         int G, int W, int C, int hot_len, int cold_len, int newest, int n_split,
-                        cudaStream_t stream) {
+                        const RowTable* rows, cudaStream_t stream) {
   const float scale_log2 = (float)(1.0 / sqrt((double)D)) * kLog2e;
   constexpr size_t smem = partial_smem_bytes<D, GT>();
-  auto kernel = tiered_partial_kernel<T, D, GT>;
-  if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic shared memory, once a device
-    static std::atomic<unsigned long long> opted_in{0};  // bit i: device i
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    const unsigned long long bit = 1ull << (dev & 63);
-    if (!(opted_in.load(std::memory_order_relaxed) & bit)) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return err;
-      opted_in.fetch_or(bit, std::memory_order_relaxed);
-    }
+  const dim3 grid(B * KV, n_split, (G + GT - 1) / GT);
+  cudaError_t err;
+  if (rows) {
+    static std::atomic<unsigned long long> opted_in{0};
+    auto kernel = tiered_rows_partial_kernel<T, D, GT>;
+    if ((err = opt_in_smem(kernel, smem, opted_in)) != cudaSuccess) return err;
+    kernel<<<grid, kWarps * 32, smem, stream>>>((const T*)q, *rows, (T*)out, part_ml, part_acc, KV, G, W,
+                                                scale_log2);
+  } else {
+    static std::atomic<unsigned long long> opted_in{0};
+    auto kernel = tiered_partial_kernel<T, D, GT>;
+    if ((err = opt_in_smem(kernel, smem, opted_in)) != cudaSuccess) return err;
+    kernel<<<grid, kWarps * 32, smem, stream>>>((const T*)q, (const T*)hk, (const T*)hv, (const T*)ck,
+                                                (const T*)cv, (T*)out, part_ml, part_acc, G, W, C, hot_len,
+                                                cold_len, newest, scale_log2);
   }
-  const int tiles = (G + GT - 1) / GT;
-  kernel<<<dim3(B * KV, n_split, tiles), kWarps * 32, smem, stream>>>(
-      (const T*)q, (const T*)hk, (const T*)hv, (const T*)ck, (const T*)cv, (T*)out, part_ml, part_acc, G, W,
-      C, hot_len, cold_len, newest, scale_log2);
   return cudaGetLastError();
 }
 
@@ -352,13 +432,13 @@ template <typename T, int D>
 cudaError_t launch_g(int G, int GT, const void* q, const void* hk, const void* hv, const void* ck,
                      const void* cv, void* out, float* part_ml, float* part_acc, int B, int KV,
                      int W, int C, int hot_len, int cold_len, int newest, int n_split,
-                     cudaStream_t stream) {
+                     const RowTable* rows, cudaStream_t stream) {
   cudaError_t err;
   switch (GT) {
 #define TD_TILE(GG)                                                                                \
   case GG:                                                                                         \
     err = launch_tile<T, D, GG>(q, hk, hv, ck, cv, out, part_ml, part_acc, B, KV, G, W, C, hot_len, \
-                                cold_len, newest, n_split, stream);                                \
+                                cold_len, newest, n_split, rows, stream);                          \
     break;
     TD_TILE(1)
     TD_TILE(2)
@@ -378,12 +458,12 @@ template <typename T>
 cudaError_t launch_d(int D, int G, int GT, const void* q, const void* hk, const void* hv,
                      const void* ck, const void* cv, void* out, float* ml, float* acc, int B,
                      int KV, int W, int C, int hot_len, int cold_len, int newest, int n_split,
-                     cudaStream_t stream) {
+                     const RowTable* rows, cudaStream_t stream) {
   switch (D) {
 #define TD_D(DD)                                                                                 \
   case DD:                                                                                       \
     return launch_g<T, DD>(G, GT, q, hk, hv, ck, cv, out, ml, acc, B, KV, W, C, hot_len, cold_len, \
-                           newest, n_split, stream);
+                           newest, n_split, rows, stream);
     TD_D(16)
     TD_D(32)
     TD_D(64)
@@ -392,6 +472,22 @@ cudaError_t launch_d(int D, int G, int GT, const void* q, const void* hk, const 
 #undef TD_D
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Both entries: pass 1 over B rows, and pass 2 when n_split > 1.
+cudaError_t launch(int dtype, int D, int G, int GT, const void* q, const void* hk, const void* hv,
+                   const void* ck, const void* cv, void* out, void* scratch, int B, int H, int KV, int W,
+                   int C, int hot_len, int cold_len, int newest, int n_split, const RowTable* rows,
+                   cudaStream_t s) {
+  float* ml = (float*)scratch;
+  float* acc = ml ? ml + (size_t)B * H * n_split * 2 : nullptr;
+  if (dtype == 0)
+    return launch_d<float>(D, G, GT, q, hk, hv, ck, cv, out, ml, acc, B, KV, W, C, hot_len, cold_len, newest,
+                           n_split, rows, s);
+  if (dtype == 1)
+    return launch_d<__nv_bfloat16>(D, G, GT, q, hk, hv, ck, cv, out, ml, acc, B, KV, W, C, hot_len, cold_len,
+                                   newest, n_split, rows, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -409,15 +505,35 @@ extern "C" int tiered_decode_launch(const void* q, const void* hot_k, const void
                                     int dtype, void* stream) {
   if (KV <= 0 || H % KV || n_split < 1 || n_split > 65535 || (n_split > 1 && !scratch))
     return (int)cudaErrorInvalidValue;
-  const int G = H / KV;
-  float* ml = (float*)scratch;
-  float* acc = ml ? ml + (size_t)B * H * n_split * 2 : nullptr;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return (int)launch_d<float>(D, G, head_tile, q, hot_k, hot_v, cold_k, cold_v, out, ml, acc, B, KV, W, C,
-                                hot_len, cold_len, newest, n_split, s);
-  if (dtype == 1)
-    return (int)launch_d<__nv_bfloat16>(D, G, head_tile, q, hot_k, hot_v, cold_k, cold_v, out, ml, acc, B,
-                                        KV, W, C, hot_len, cold_len, newest, n_split, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch(dtype, D, H / KV, head_tile, q, hot_k, hot_v, cold_k, cold_v, out, scratch, B, H, KV, W,
+                     C, hot_len, cold_len, newest, n_split, nullptr, (cudaStream_t)stream);
+}
+
+// The per-row entry, for N sessions at N different lengths: q (N, H, 1, D);
+// row i's ring hot_k[i] / hot_v[i] (1, KV, W, D) and staging buffers
+// cold_k[i] / cold_v[i] (1, KV, caps[i], D), each contiguous where it lies;
+// lens[3 i], lens[3 i + 1], lens[3 i + 2] = row i's hot_len, cold_len and
+// ring slot of the newest token.  1 <= N <= 64; every row splits its own keys
+// into n_split ranges; scratch, head_tile, dtype and the return as above,
+// with B = N.
+extern "C" int tiered_decode_rows_launch(const void* q, const void* const* hot_k, const void* const* hot_v,
+                                         const void* const* cold_k, const void* const* cold_v, const int* caps,
+                                         const int* lens, void* out, void* scratch, int N, int H, int KV, int W,
+                                         int D, int n_split, int head_tile, int dtype, void* stream) {
+  if (N < 1 || N > kMaxRows || KV <= 0 || H % KV || n_split < 1 || n_split > 65535 ||
+      (n_split > 1 && !scratch))
+    return (int)cudaErrorInvalidValue;
+  RowTable rows = {};
+  for (int i = 0; i < N; ++i) {
+    rows.hot_k[i] = hot_k[i];
+    rows.hot_v[i] = hot_v[i];
+    rows.cold_k[i] = cold_k[i];
+    rows.cold_v[i] = cold_v[i];
+    rows.cap[i] = caps[i];
+    rows.hot_len[i] = lens[3 * i];
+    rows.cold_len[i] = lens[3 * i + 1];
+    rows.newest[i] = lens[3 * i + 2];
+  }
+  return (int)launch(dtype, D, H / KV, head_tile, q, nullptr, nullptr, nullptr, nullptr, out, scratch, N, H, KV,
+                     W, 0, 0, 0, 0, n_split, &rows, (cudaStream_t)stream);
 }

@@ -87,7 +87,8 @@ def build(names=SOURCES) -> dict[str, Path]:
 def _bind(lib: ctypes.CDLL, name: str) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     if name == "tiered_decode":
-        fns = [(lib.tiered_decode_launch, [P] * 7 + [I] * 12 + [P])]
+        fns = [(lib.tiered_decode_launch, [P] * 7 + [I] * 12 + [P]),
+               (lib.tiered_decode_rows_launch, [P] * 9 + [I] * 8 + [P])]
     elif name == "flash_attention":
         args = [P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float]
         fns = [(lib.flash_attention_launch, args + [I, P]), (lib.flash_attention_wgmma_launch, args + [P])]
@@ -160,6 +161,27 @@ def tiered_decode_attention(
     return ref.tiered_ring_attention_ref(q, hot_k, hot_v, cold_k, cold_v, hot_len, cold_len, ring_newest)
 
 
+def tiered_decode_rows_attention(
+    q: torch.Tensor,  # (N, H, 1, D)
+    hot_k,  # N rings (1, KV, W, D)
+    hot_v,
+    cold_k,  # N staging buffers (1, KV, C_i, D)
+    cold_v,
+    lens,  # (N, 3): hot_len, cold_len, ring_newest of each row
+) -> torch.Tensor:
+    """Two-tier decode attention for N rows at N different lengths, each row
+    over its own ring and staging buffer (the session plane's batched
+    decode).  Counted in its own ``launches``, beside
+    ``tiered_decode_attention``'s: one source, two entries."""
+    if q.is_cuda:
+        from repro_torch.kernels.tiered_decode import tiered_decode_rows_fwd
+
+        out = tiered_decode_rows_fwd(q, hot_k, hot_v, cold_k, cold_v, lens)
+        tiered_decode_rows_attention.launches += 1
+        return out
+    return ref.tiered_rows_attention_ref(q, hot_k, hot_v, cold_k, cold_v, lens)
+
+
 def rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + x_t along S of (B, S, W) inputs from a zero
     carry (fold a carry-in into x_0); fp32 carry, output in x's dtype."""
@@ -202,6 +224,7 @@ KERNEL_OPS = {
 def reset_launches() -> None:
     for op in KERNEL_OPS.values():
         op.launches = 0
+    tiered_decode_rows_attention.launches = 0
     flash_attention.path_launches = {"tensor_core": 0, "cuda_core": 0}
 
 

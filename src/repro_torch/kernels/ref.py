@@ -8,6 +8,8 @@ They are no yardstick of speed.
 
 Shapes follow the kernel conventions:
     attention   q: (B, H, S, D);  k, v: (B, KV, T, D)   (head-major)
+    tiered rows q: (N, H, 1, D); per row i: ring (1, KV, W, D), staging
+                (1, KV, C_i, D), lens[i] = (hot_len, cold_len, ring_newest)
     rglru       a, x: (B, S, W) -> h: (B, S, W)
     mlstm       q, k, v: (B, H, S, D); i, f pre-acts: (B, H, S);
                 carry (C (B, H, D, D) as C[v, k], n (B, H, D), m (B, H))
@@ -99,6 +101,22 @@ def tiered_ring_attention_ref(
     v = torch.cat([cold_v, hot_v], dim=2)
     out = _gqa_softmax_attend(q, k, v, valid)
     return out if bool(valid.any()) else torch.zeros_like(out)
+
+
+def tiered_rows_attention_ref(
+    q: torch.Tensor,  # (N, H, 1, D)
+    hot_k,  # N rings (1, KV, W, D)
+    hot_v,
+    cold_k,  # N staging buffers (1, KV, C_i, D)
+    cold_v,
+    lens,  # (N, 3): hot_len, cold_len, ring_newest of each row
+) -> torch.Tensor:
+    """Per-row two-tier decode: row i of q over its own ring, staging buffer
+    and lengths — the plain version of the per-row tiered kernel, and the
+    counterpart of the JAX session plane's vmapped oracle
+    (``repro/serving/scheduler.py``'s ``_batched_attend``)."""
+    return torch.cat([tiered_ring_attention_ref(q[i:i + 1], hot_k[i], hot_v[i], cold_k[i], cold_v[i],
+                                                *(int(x) for x in lens[i])) for i in range(q.shape[0])])
 
 
 def rglru_ref(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor | None = None) -> torch.Tensor:

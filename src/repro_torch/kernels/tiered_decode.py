@@ -19,10 +19,18 @@ G heads into tiles of a built width.  Any other shape raises.
 ranges (plain Python, tested on the CPU); ``split_merge_plain`` is the
 kernel's split-then-merge arithmetic in plain PyTorch.  The plain version
 of the op is ``ref.tiered_ring_attention_ref``; ``ops`` chooses.
+
+``tiered_decode_rows_fwd`` launches the per-row entry: N rows (sessions),
+each with its own ring, staging buffer of its own capacity and its own
+lengths, read where they lie (up to ``MAX_ROWS``); every row splits its own
+keys into the same ``n_split`` ranges.  Its plain version is
+``ref.tiered_rows_attention_ref``, its split arithmetic
+``split_merge_rows_plain``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -32,6 +40,7 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 GROUPS = tuple(range(1, 17))
 HEAD_TILES = (1, 2, 4, 6, 8)  # the head-tile widths GT the kernel is built for
 MIN_KEYS_PER_SPLIT = 64
+MAX_ROWS = 64  # the per-row entry's table (csrc/tiered_decode.cu::kMaxRows)
 
 
 def head_tile(group: int) -> tuple[int, int]:
@@ -112,6 +121,100 @@ def split_merge_plain(
     return out.reshape(b, h, 1, d).to(q.dtype)
 
 
+def split_merge_rows_plain(q, hot_k, hot_v, cold_k, cold_v, lens, n_split: int) -> torch.Tensor:
+    """The per-row kernel's arithmetic in plain PyTorch: row i of q (N, H, 1,
+    D) over its own ring, staging buffer and lengths ``lens[i]`` = (hot_len,
+    cold_len, ring_newest), its keys cut into ``n_split`` ranges."""
+    return torch.cat([split_merge_plain(q[i:i + 1], hot_k[i], hot_v[i], cold_k[i], cold_v[i], *map(int, lens[i]),
+                                        n_split) for i in range(q.shape[0])])
+
+
+def _check_group(h: int, kv: int, d: int) -> None:
+    if d not in HEAD_DIMS or kv <= 0 or h % kv or h // kv not in GROUPS:
+        raise ValueError(f"tiered decode kernel built for D in {HEAD_DIMS}, H/KV in 1..{GROUPS[-1]}; "
+                         f"got D={d}, H={h}, KV={kv}")
+
+
+def _check_operands(tensors, q: torch.Tensor) -> None:
+    """One dtype the kernel takes, then one CUDA device, contiguous, 16-byte
+    aligned (the kernel's loads are 16 bytes a lane)."""
+    if not all(t.dtype == q.dtype for t in tensors) or q.dtype not in _DTYPES:
+        raise TypeError(f"tiered decode kernel takes float32 or bfloat16 operands of one dtype, got "
+                        f"{sorted({str(t.dtype) for t in tensors})}")
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("tiered decode kernel: every operand must be on one CUDA device")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
+        raise ValueError("tiered decode kernel takes contiguous operands on 16-byte boundaries")
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def rows_plan(q: torch.Tensor, hot_k, hot_v, cold_k, cold_v, lens) -> tuple[list[tuple[int, int, int]], int]:
+    """Check the per-row operands, as the launcher does before any launch,
+    and return (the lengths as int triples, the planned split count).
+
+    q (N, H, 1, D); N rows (1 <= N <= ``MAX_ROWS``) of hot rings (1, KV, W,
+    D), all of one W, KV and D, and staging buffers (1, KV, C_i, D); lens
+    (N, 3) = (hot_len, cold_len, ring_newest) a row, 0 <= hot_len <= W and
+    0 <= cold_len <= C_i.  Shapes and dtypes are checked before the device,
+    so a refusal shows on any machine."""
+    n, h, one, d = q.shape
+    if one != 1:
+        raise ValueError(f"decode takes one query row, got {one}")
+    if not 1 <= n <= MAX_ROWS:
+        raise ValueError(f"tiered rows kernel takes 1 to {MAX_ROWS} rows, got {n}")
+    if not len(hot_k) == len(hot_v) == len(cold_k) == len(cold_v) == len(lens) == n:
+        raise ValueError(f"{n} query rows need {n} rings, staging buffers and length triples")
+    kv, w = hot_k[0].shape[1], hot_k[0].shape[2]
+    _check_group(h, kv, d)
+    lens = [tuple(int(x) for x in row) for row in lens]
+    for i, (hk, hv, ck, cv, (hot_len, cold_len, _)) in enumerate(zip(hot_k, hot_v, cold_k, cold_v, lens)):
+        if hk.shape != (1, kv, w, d) or hv.shape != hk.shape or ck.ndim != 4 or ck.shape[:2] != (1, kv) \
+                or ck.shape[3] != d or cv.shape != ck.shape:
+            raise ValueError(f"row {i}: every row needs rings (1, {kv}, {w}, {d}) and staging buffers "
+                             f"(1, {kv}, C, {d}); got hot {tuple(hk.shape)}, cold {tuple(ck.shape)}")
+        if not (0 <= hot_len <= w and 0 <= cold_len <= ck.shape[2]):
+            raise ValueError(f"row {i}: lengths out of range: hot_len={hot_len} (W={w}), "
+                             f"cold_len={cold_len} (C={ck.shape[2]})")
+    _check_operands((q, *hot_k, *hot_v, *cold_k, *cold_v), q)
+    tiles = head_tile(h // kv)[1]
+    n_keys = max(hot_len + cold_len for hot_len, cold_len, _ in lens)
+    return lens, plan_splits(n_keys, n * kv * tiles, _sms(q.device), blocks_per_sm(h // kv))
+
+
+def rows_launch_args(q, hot_k, hot_v, cold_k, cold_v, lens, n_split: int, out, scratch) -> tuple:
+    """The arguments of one ``tiered_decode_rows_launch`` C call, on checked
+    operands (``rows_plan``): the rows' base pointers, capacities and
+    lengths as C arrays, and the current stream."""
+    n, h, _, d = q.shape
+    _, kv, w, _ = hot_k[0].shape
+    ptrs = lambda ts: (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
+    return (q.data_ptr(), ptrs(hot_k), ptrs(hot_v), ptrs(cold_k), ptrs(cold_v),
+            (ctypes.c_int * n)(*(c.shape[2] for c in cold_k)), (ctypes.c_int * (3 * n))(*(x for r in lens for x in r)),
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(), n, h, kv, w, d, int(n_split),
+            head_tile(h // kv)[0], _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def tiered_decode_rows_fwd(q: torch.Tensor, hot_k, hot_v, cold_k, cold_v, lens,
+                           n_split: int | None = None) -> torch.Tensor:
+    """Launch the per-row entry's two passes on PyTorch's current stream; no
+    synchronisation.  Operands as ``rows_plan`` checks them; ``n_split``
+    defaults to its plan for this card."""
+    from repro_torch.kernels.ops import check, load
+
+    lens, planned = rows_plan(q, hot_k, hot_v, cold_k, cold_v, lens)
+    n_split = planned if n_split is None else n_split
+    n, h, _, d = q.shape
+    out = torch.empty_like(q)
+    scratch = torch.empty(n * h * n_split * (d + 2), dtype=torch.float32, device=q.device) if n_split > 1 else None
+    lib = load("tiered_decode")
+    check(lib.tiered_decode_rows_launch(*rows_launch_args(q, hot_k, hot_v, cold_k, cold_v, lens, n_split, out,
+                                                          scratch)), "tiered_decode_rows_attention")
+    return out
+
+
 def tiered_decode_attention_fwd(
     q: torch.Tensor,  # (B, H, 1, D)
     hot_k: torch.Tensor,  # (B, KV, W, D)
@@ -133,25 +236,16 @@ def tiered_decode_attention_fwd(
     tensors = (q, hot_k, hot_v, cold_k, cold_v)
     if one != 1:
         raise ValueError(f"decode takes one query row, got {one}")
-    if d not in HEAD_DIMS or kv <= 0 or h % kv or h // kv not in GROUPS:
-        raise ValueError(f"tiered decode kernel built for D in {HEAD_DIMS}, H/KV in 1..{GROUPS[-1]}; "
-                         f"got D={d}, H={h}, KV={kv}")
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
-        raise ValueError("tiered decode kernel: every operand must be on one CUDA device")
-    if not all(t.dtype == q.dtype for t in tensors) or q.dtype not in _DTYPES:
-        raise TypeError(f"tiered decode kernel takes float32 or bfloat16 operands of one dtype, got "
-                        f"{[t.dtype for t in tensors]}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
-        raise ValueError("tiered decode kernel takes contiguous operands on 16-byte boundaries")
+    _check_group(h, kv, d)
     if hot_v.shape != hot_k.shape or cold_v.shape != cold_k.shape or cold_k.shape[:2] != (b, kv) \
             or hot_k.shape[0] != b or cold_k.shape[3] != d or hot_k.shape[3] != d:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} hot {tuple(hot_k.shape)} cold {tuple(cold_k.shape)}")
     if not (0 <= hot_len <= w and 0 <= cold_len <= c):
         raise ValueError(f"lengths out of range: hot_len={hot_len} (W={w}), cold_len={cold_len} (C={c})")
+    _check_operands(tensors, q)
     gt, tiles = head_tile(h // kv)
     if n_split is None:
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        n_split = plan_splits(hot_len + cold_len, b * kv * tiles, sms, blocks_per_sm(h // kv))
+        n_split = plan_splits(hot_len + cold_len, b * kv * tiles, _sms(q.device), blocks_per_sm(h // kv))
     out = torch.empty_like(q)
     scratch = torch.empty(b * h * n_split * (d + 2), dtype=torch.float32, device=q.device) if n_split > 1 else None
     lib = load("tiered_decode")

@@ -18,6 +18,21 @@ striped file tier), and the run prints the pages and bytes persisted.
         --batch 2 --prompt-len 48 --tokens 24 --kv-window 32 --kv-page 16 \
         --store-root /tmp/kvstore --device cpu
 
+``--sessions N`` switches to the multi-session serving plane: N sessions
+under a continuous-batching ``SessionScheduler``, each with its own tiered
+KV caches, decoded together through the per-row tiered kernel.
+``--max-batch`` bounds the sessions a decode step takes; ``--hbm-budget-kb``
+/ ``--host-budget-kb`` bound the sessions' aggregate device / host KV bytes
+(over the device budget staging buffers are dropped, over the host budget
+idle sessions are evicted into the ``--store-root`` store and resumed
+bit-identical); ``--shared-prefix`` gives the sessions a common prompt
+prefix, whose cold pages the store then holds once.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --reduced \
+        --sessions 8 --max-batch 2 --prompt-len 48 --tokens 16 \
+        --kv-window 16 --kv-page 8 --shared-prefix 32 \
+        --store-root /tmp/kvstore --host-budget-kb 256 --device cpu
+
 Without ``--kv-window`` the dense
 dict-cache loop runs: windowed attention keeps its O(window) ring page and
 the recurrent layers (recurrentgemma-9b, xlstm-125m) their O(1) states.
@@ -86,6 +101,32 @@ def tiered_serve(cfg, batch: int, prompt_len: int, tokens: int, window: int,
     return gen, prefill_s, decode_s, tiered_cache_stats(caches)
 
 
+def session_serve(cfg, n_sessions: int, max_batch: int, prompt_len: int, tokens: int, window: int,
+                  page: int | None, seed: int = 0, store=None, shared_prefix: int = 0,
+                  hbm_bytes: int | None = None, host_bytes: int | None = None, device="cuda",
+                  attn_impl: str = "flash") -> dict:
+    """Continuous batching over ``n_sessions`` tiered sessions (eager), the
+    prompts drawn from ``seed`` as the JAX package draws them; returns the
+    scheduler's report."""
+    from repro_torch.serving import SessionScheduler
+
+    cfg = dataclasses.replace(cfg, scan_layers=False, attn_impl=attn_impl)
+    model = make_model(cfg)
+    params = init_params(model, seed, device)
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, cfg.vocab, min(shared_prefix, prompt_len))
+    sched = SessionScheduler(
+        model, cfg, params, window=window, page=page, max_batch=max_batch,
+        store=store, hbm_bytes=hbm_bytes, host_bytes=host_bytes, device=device,
+    )
+    for _ in range(n_sessions):
+        tail = rng.integers(0, cfg.vocab, prompt_len - len(shared))
+        sched.submit(np.concatenate([shared, tail]).astype(np.int32), tokens)
+    report = sched.run()
+    sched.close()
+    return report
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -97,6 +138,17 @@ def main() -> None:
                     help="route full-attention KV through the tiered cache (hot ring size)")
     ap.add_argument("--kv-page", type=int, default=0,
                     help="cold-tier staging page in tokens (default min(window, 512))")
+    ap.add_argument("--sessions", type=int, default=0,
+                    help="continuous-batching serving plane over N sessions (needs --kv-window)")
+    ap.add_argument("--max-batch", type=int, default=4,
+                    help="with --sessions: per-step decode batch bound")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="with --sessions: common prompt prefix length (page dedup)")
+    ap.add_argument("--hbm-budget-kb", type=int, default=0,
+                    help="with --sessions: aggregate device KV budget (0 = unbounded)")
+    ap.add_argument("--host-budget-kb", type=int, default=0,
+                    help="with --sessions: aggregate host KV budget (0 = unbounded; "
+                         "overflow evicts idle sessions into --store-root)")
     ap.add_argument("--attn-impl", choices=("xla", "flash"), default="flash",
                     help="prefill: 'flash' (default) runs the kernels, 'xla' their plain versions")
     ap.add_argument("--store-root", default="",
@@ -106,6 +158,8 @@ def main() -> None:
     args = ap.parse_args()
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.sessions > 0 and args.kv_window <= 0:
+        raise SystemExit("--sessions requires --kv-window")
     if args.kv_window > 0:
         store = None
         if args.store_root:
@@ -113,6 +167,25 @@ def main() -> None:
 
             store = TwoLevelStore(args.store_root)
         try:
+            if args.sessions > 0:
+                rep = session_serve(
+                    cfg, args.sessions, args.max_batch, args.prompt_len, args.tokens,
+                    window=args.kv_window, page=args.kv_page or None, seed=args.seed, store=store,
+                    shared_prefix=args.shared_prefix, hbm_bytes=args.hbm_budget_kb * 1024 or None,
+                    host_bytes=args.host_budget_kb * 1024 or None, device=args.device,
+                    attn_impl=args.attn_impl,
+                )
+                print(f"sessions {rep['sessions']} (retired {rep['retired']}) over "
+                      f"{rep['steps']} steps, max_batch {args.max_batch}")
+                print(f"decode {rep['decoded_tokens']} tokens: {rep['decode_s']:.3f}s "
+                      f"({rep['decode_tok_per_s']:,.0f} tok/s aggregate)")
+                print(f"ttft p50 {rep['ttft_p50_s']*1e3:.1f}ms  p99 {rep['ttft_p99_s']*1e3:.1f}ms")
+                print(f"tier overflow: {rep['demotions']} demotions, "
+                      f"{rep['evictions']} evictions, {rep['resumes']} resumes")
+                if "dedup_ratio" in rep:
+                    print(f"shared pages: {rep['pages_logical']} logical / "
+                          f"{rep['pages_stored']} stored (dedup {rep['dedup_ratio']:.2f}x)")
+                return
             gen, prefill_s, decode_s, st = tiered_serve(
                 cfg, args.batch, args.prompt_len, args.tokens, window=args.kv_window,
                 page=args.kv_page or None, seed=args.seed, device=args.device,

@@ -251,8 +251,16 @@ def attention_apply(
 
     if mode == "decode" and tiered:
         # Two-level serving backend: hot device ring + paged host cold tier.
-        # torch.full fills on the device: no host-to-device copy per layer.
-        pos = positions.reshape(1, -1) if positions is not None else torch.full((1, 1), cache.length, device=dev)
+        if positions is not None:
+            pos = positions.reshape(1, -1)
+        elif hasattr(cache, "row_positions"):
+            # Continuous batching: a per-layer adapter over sessions at
+            # different lengths gives (B, 1) positions, one a row, so each
+            # session's RoPE phase is its own.
+            pos = cache.row_positions()
+        else:
+            # torch.full fills on the device: no host-to-device copy per layer.
+            pos = torch.full((1, 1), cache.length, device=dev)
         if use_rope:
             cos, sin = rope_tables(pos, hd, cfg.rope_theta)
             q = apply_rope(q, cos, sin)

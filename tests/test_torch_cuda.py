@@ -234,6 +234,134 @@ def test_cuda_tiered_serve_matches_plain(cuda_device):
     torch.testing.assert_close(kern, plain, rtol=0, atol=0)
 
 
+# Rows of the per-row entry over a ring of 16: (staging capacity C_i,
+# hot_len, cold_len, newest) — both tiers, hot only, cold only, a wrapped
+# ring over a full cold buffer, no key, and a long row of 1088 keys.
+ROWS_CASES = [(64, 16, 40, 15), (32, 12, 0, 11), (128, 0, 96, 7), (16, 16, 16, 5), (64, 0, 0, 0),
+              (1024, 16, 1024, 3)]
+ROWS_SHAPES = [(4, 4, 64), (8, 8, 128), (12, 2, 128), (24, 2, 256), (32, 8, 128), (16, 4, 256)]
+
+
+def _rows(g, rows, h, kv, d, dt, device, w=16):
+    rnd = lambda *s: torch.randn(s, generator=g, device=device).to(dt)
+    q = rnd(len(rows), h, 1, d)
+    hot_k, hot_v = [rnd(1, kv, w, d) for _ in rows], [rnd(1, kv, w, d) for _ in rows]
+    cold_k, cold_v = [rnd(1, kv, c, d) for c, *_ in rows], [rnd(1, kv, c, d) for c, *_ in rows]
+    return q, hot_k, hot_v, cold_k, cold_v, [r[1:] for r in rows]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_tiered_rows_matches_plain(cuda_device, dtype):
+    """The per-row entry against ``ref.tiered_rows_attention_ref``: rows of
+    mixed lengths and staging capacities, each its own allocation, at groups
+    1, 4, 6 and 12 and head dims 64, 128 and 256, at the planned and at
+    forced split counts (splits with no key)."""
+    from repro_torch.kernels.tiered_decode import tiered_decode_rows_fwd
+
+    assert {h // kv for h, kv, _ in ROWS_SHAPES} >= {1, 4, 6, 12} and {d for *_, d in ROWS_SHAPES} == {64, 128, 256}
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    before = ops.tiered_decode_rows_attention.launches
+    for h, kv, d in ROWS_SHAPES:
+        args = _rows(g, ROWS_CASES, h, kv, d, dt, cuda_device)
+        want = tref.tiered_rows_attention_ref(*args)
+        torch.testing.assert_close(ops.tiered_decode_rows_attention(*args), want, **TOL[dtype])
+        for n_split in (1, 5, 17):
+            torch.testing.assert_close(tiered_decode_rows_fwd(*args, n_split=n_split), want, **TOL[dtype],
+                                       msg=lambda m: f"H={h} KV={kv} D={d} n_split={n_split}: {m}")
+        assert not want[4].any()
+    torch.cuda.synchronize()
+    assert ops.tiered_decode_rows_attention.launches - before == len(ROWS_SHAPES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_tiered_one_row_matches_batch_entry(cuda_device, dtype):
+    """A one-row table gives what the batch entry gives on the same row, at
+    the same split count (the same arithmetic in the same order)."""
+    from repro_torch.kernels.tiered_decode import tiered_decode_rows_fwd
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    for c, hot_len, cold_len, newest in ROWS_CASES:
+        q, hk, hv, ck, cv, lens = _rows(g, [(c, hot_len, cold_len, newest)], 32, 8, 128, dt, cuda_device)
+        for n_split in (1, 4):
+            got = tiered_decode_rows_fwd(q, hk, hv, ck, cv, lens, n_split=n_split)
+            single = tiered_decode_attention_fwd(q, hk[0], hv[0], ck[0], cv[0], hot_len, cold_len, newest,
+                                                 n_split=n_split)
+            torch.testing.assert_close(got, single, **TOL[dtype])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_tiered_rows_refuses_bad_tables(cuda_device):
+    """Rows on the card of mixed W, KV, D or dtype, lengths past a row's
+    capacity, a row off contiguity, or more rows than the table holds,
+    raise; nothing falls back."""
+    from repro_torch.kernels.tiered_decode import MAX_ROWS
+
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    rows = [(64, 16, 40, 15), (32, 12, 0, 11)]
+    fresh = lambda: list(_rows(g, rows, 8, 2, 64, torch.float32, cuda_device))
+    bad = fresh()
+    bad[1][1] = bad[1][1][:, :, :8].contiguous()  # W 8 beside W 16
+    with pytest.raises(ValueError, match="every row"):
+        ops.tiered_decode_rows_attention(*bad)
+    bad = fresh()
+    bad[3][1] = bad[3][1].to(torch.bfloat16)
+    with pytest.raises(TypeError, match="one dtype"):
+        ops.tiered_decode_rows_attention(*bad)
+    bad = fresh()
+    bad[5] = [(16, 40, 15), (12, 33, 11)]  # cold_len 33 past C = 32
+    with pytest.raises(ValueError, match="out of range"):
+        ops.tiered_decode_rows_attention(*bad)
+    bad = fresh()
+    bad[2][0] = torch.randn(1, 2, 64, 16, device=cuda_device).transpose(2, 3)  # (1, 2, 16, 64), strided
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.tiered_decode_rows_attention(*bad)
+    many = _rows(g, [(16, 4, 0, 3)] * (MAX_ROWS + 1), 8, 2, 64, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="rows"):
+        ops.tiered_decode_rows_attention(*many)
+
+
+@pytest.mark.cuda
+def test_cuda_sessions_match_plain(cuda_device):
+    """Reduced qwen3 in fp32 on the card: sessions at different lengths
+    decoded together through the per-row kernel give the tokens of the plain
+    versions, with one per-row launch a layer a decode step and no
+    single-row tiered launch."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_reduced, make_model
+    from repro_torch.launch.serve import init_params
+    from repro_torch.serving import SessionScheduler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = dataclasses.replace(get_reduced("qwen3_8b"), dtype="float32", scan_layers=False)
+    params = init_params(make_model(base), seed=0, device=cuda_device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, base.vocab, 30 + 7 * i).astype(np.int32) for i in range(4)]
+    tokens = {}
+    for impl, attn_impl in (("kernel", "flash"), ("plain", "xla")):
+        cfg = dataclasses.replace(base, attn_impl=attn_impl)
+        sched = SessionScheduler(make_model(cfg), cfg, params, window=16, page=8, max_batch=4, dtype=torch.float32,
+                                 device=cuda_device, impl=impl)
+        sids = [sched.submit(p, 10) for p in prompts]
+        ops.reset_launches()
+        dispatches = 0
+        while sched._queue or sched._live():
+            dispatches += sched.step()["batch"] > 0
+        if impl == "kernel":
+            assert ops.tiered_decode_rows_attention.launches == base.n_layers * dispatches
+            assert ops.launches()["tiered_decode"] == 0
+        tokens[impl] = [sched.session_tokens(s) for s in sids]
+        sched.close()
+    assert tokens["kernel"] == tokens["plain"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_rglru_matches_plain(cuda_device, dtype):
