@@ -40,7 +40,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                  each in fp32 (the model's dtype) and again in bf16
 6. mlstm         the chunkwise mLSTM kernel against its plain version, h and
                  carry-out, at B=4, H=4, S=2048, D=384, from a carry-in, and at
-                 ragged S=300, each in fp32 and again in bf16
+                 ragged S=300, each in fp32 and again in bf16; the value tile
+                 (tile_v) and blocks each launch took; then (``mlstm_tiles``)
+                 both built tiles timed at D=384, S=2048 for B*H 4, 16, 20
+                 and 40 beside the tile the plan picks there
 7. serve         qwen3-8b at full width and depth, attn_impl="flash", through
                  ``repro_torch.launch.steps.tiered_serve_loop`` (batch 4, prompt
                  1024, 64 new tokens, kv window 256, page 128), then profiled
@@ -527,8 +530,8 @@ def mlstm_phase(record: dict) -> None:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.mlstm import CHUNK, mlstm_chunkwise_fwd
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.mlstm import CHUNK, TILE_VS, mlstm_chunkwise_fwd, plan_tile_v
 
     B, H, D = 4, 4, 384  # xlstm-125m: 4 heads of 1536 / 4
     shapes = [  # name, S, carry-in; each in fp32 (the model's dtype), then in bf16
@@ -547,6 +550,7 @@ def mlstm_phase(record: dict) -> None:
         ip, fl = (0.5 * rnd(B, H, S)).to(dt), F.logsigmoid(rnd(B, H, S) + 2.0).to(dt)
         state = carry if with_carry else None
         got, got_carry = mlstm_chunkwise_fwd(q, k, v, ip, fl, state)
+        tile_v, blocks = mlstm_chunkwise_fwd.last_grid
         want, want_carry = ref.mlstm_ref(q, k, v, ip, fl, state)
         torch.cuda.synchronize()
         checks = [within_tol(g, w, dt_name, MLSTM_TOL) for g, w in zip((got, *got_carry), (want, *want_carry))]
@@ -560,14 +564,42 @@ def mlstm_phase(record: dict) -> None:
         moved = (4 * B * H * S * D + 2 * B * H * S) * isz + carry_bytes * (2 if with_carry else 1)
         bound_ms, bound_by = bound(moved, mlstm_flops(B, H, S, D, CHUNK), dt_name)
         row = dict(case=name, dtype=dt_name, B=B, H=H, S=S, D=D, chunk=CHUNK, carry_in=with_carry,
-                   max_abs_err=err, tol=MLSTM_TOL[dt_name], ok=ok, ms=ms, plain_ms=plain_ms,
-                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+                   tile_v=tile_v, blocks=blocks, max_abs_err=err, tol=MLSTM_TOL[dt_name],
+                   ok=ok, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
         emit("mlstm", **row)
         if not ok:
             raise AssertionError(f"mlstm {name}: h or carry-out not within rtol=atol={MLSTM_TOL[dt_name]} "
                                  f"(max abs err {err})")
         record.setdefault("mlstm", []).append(row)
         del q, k, v, got, want, got_carry, want_carry
+
+    # The value-tile plan against both tiles at D = 384 (fp32, S = 2048, the
+    # empty history), at xlstm-125m's H = 4 and batches 1, 4, 5 and 10: B*H
+    # on each side of each of the plan's choices.  The tiles' outputs must
+    # agree within the fp32 tolerance; the times are reported, not gated.
+    S = 2048
+    for b in (1, 4, 5, 10):
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+        q, k, v = rnd(b, H, S, D), rnd(b, H, S, D) / D**0.5, rnd(b, H, S, D)
+        ip, fl = 0.5 * rnd(b, H, S), F.logsigmoid(rnd(b, H, S) + 2.0)
+        ms, blocks, outs = {}, {}, []
+        for tv in TILE_VS[D]:
+            outs.append(mlstm_chunkwise_fwd(q, k, v, ip, fl, tile_v=tv))
+            blocks[tv] = mlstm_chunkwise_fwd.last_grid[1]
+            ms[tv] = time_ms(lambda: mlstm_chunkwise_fwd(q, k, v, ip, fl, tile_v=tv), iters=10)
+        (h0, c0), (h1, c1) = outs
+        checks = [within_tol(x, y, "float32", MLSTM_TOL) for x, y in zip((h1, *c1), (h0, *c0))]
+        planned = plan_tile_v(D, b * H, ops.sm_count(q.device))
+        row = dict(B=b, H=H, S=S, D=D, dtype="float32", planned_tile_v=planned,
+                   blocks_by_tile_v={str(tv): n for tv, n in blocks.items()},
+                   ms_by_tile_v={str(tv): t for tv, t in ms.items()},
+                   planned_is_fastest=ms[planned] == min(ms.values()),
+                   tiles_apart=max(e for e, _ in checks), ok=all(o for _, o in checks))
+        emit("mlstm_tiles", **row)
+        if not row["ok"]:
+            raise AssertionError(f"mlstm_tiles B*H {b * H}: the value tiles' outputs differ by {row['tiles_apart']}")
+        record.setdefault("mlstm_tiles", []).append(row)
+        del q, k, v, outs, h0, c0, h1, c1
 
 
 # ------------------------------------------------------------------------ serve
@@ -1111,6 +1143,7 @@ def recurrent_serve_phase(record: dict, out_dir: Path | None, arch: str, B: int,
                batch=B, prompt_len=prompt_len, tokens=tokens, init_s=init_s, prefill_s=prefill_s,
                prefill_tok_per_s=B * prompt_len / prefill_s, decode_s=decode_s,
                decode_tok_per_s=B * tokens / decode_s, launches=launches, flash_paths=paths,
+               mlstm_grids=ops.mlstm_grid_launches(),
                cache_device_bytes=sum(t.numel() * t.element_size() for c in caches.values()
                                       for t in c.values() if torch.is_tensor(t)),
                peak_device_bytes=torch.cuda.max_memory_allocated())
@@ -1121,6 +1154,8 @@ def recurrent_serve_phase(record: dict, out_dir: Path | None, arch: str, B: int,
         raise AssertionError(f"{phase}: launch counts {launches} != {want}")
     if paths != {"tensor_core": want["flash_attention"], "cuda_core": 0}:
         raise AssertionError(f"{phase}: bf16 flash launches off the tensor-core path: {paths}")
+    if sum(g["launches"] for g in row["mlstm_grids"]) != want["mlstm"]:
+        raise AssertionError(f"{phase}: mlstm grids {row['mlstm_grids']} do not add up to {want['mlstm']} launches")
     if tuple(out.shape) != (B, tokens + 1) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
         raise AssertionError(f"{phase}: bad generated tokens: shape {tuple(out.shape)}")
     record[phase] = row
@@ -1218,6 +1253,9 @@ def kernels_line(record: dict) -> dict:
             entry.update(groups=sorted({r["G"] for r in rows}), head_dims=sorted({r["D"] for r in rows}),
                          shapes_run=sorted({(r["G"], r["D"]) for r in rows}),
                          rows_launches_by_phase=rows_by_phase)
+        if name == "mlstm":
+            entry.update(tile_v=main["tile_v"], blocks=main["blocks"],
+                         grids_by_phase={p: record[p]["mlstm_grids"] for p in by_phase})
         if name == "flash_attention":
             entry.update(path=main["path"], library_masked_ms=main["library_masked_ms"],
                          tensor_core_launches=sum(record[p]["flash_paths"]["tensor_core"] for p in SERVE_PHASES))

@@ -20,6 +20,7 @@ edited source is never served by a stale library.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -95,7 +96,7 @@ def _bind(lib: ctypes.CDLL, name: str) -> None:
     elif name == "rglru":
         fns = [(lib.rglru_scan_launch, [P, P, P, I, I, I, I, P])]
     else:
-        fns = [(lib.mlstm_chunkwise_launch, [P] * 12 + [I, I, I, I, P])]
+        fns = [(lib.mlstm_chunkwise_launch, [P] * 12 + [I, I, I, I, I, P])]
     for fn, argtypes in fns:
         fn.argtypes = argtypes
         fn.restype = I
@@ -110,6 +111,12 @@ def load(name: str) -> ctypes.CDLL:
             _bind(lib, name)
             _libs[name] = lib
         return _libs[name]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The device's SM count, which the launch planners fill."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(err: int, what: str) -> None:
@@ -209,6 +216,8 @@ def mlstm_chunkwise(
 
         out = mlstm_chunkwise_fwd(q, k, v, i_pre, f_log, state)
         mlstm_chunkwise.launches += 1
+        grid = mlstm_chunkwise_fwd.last_grid
+        mlstm_chunkwise.grid_launches[grid] = mlstm_chunkwise.grid_launches.get(grid, 0) + 1
         return out
     return ref.mlstm_ref(q, k, v, i_pre, f_log, state)
 
@@ -226,6 +235,7 @@ def reset_launches() -> None:
         op.launches = 0
     tiered_decode_rows_attention.launches = 0
     flash_attention.path_launches = {"tensor_core": 0, "cuda_core": 0}
+    mlstm_chunkwise.grid_launches = {}
 
 
 def launches() -> dict[str, int]:
@@ -235,6 +245,12 @@ def launches() -> dict[str, int]:
 def flash_path_launches() -> dict[str, int]:
     """The flash op's launches split by kernel (``flash_attention.flash_path``)."""
     return dict(flash_attention.path_launches)
+
+
+def mlstm_grid_launches() -> list[dict[str, int]]:
+    """The mLSTM op's launches by the (value tile, blocks) each launch took."""
+    return [dict(tile_v=tv, blocks=blocks, launches=n)
+            for (tv, blocks), n in sorted(mlstm_chunkwise.grid_launches.items())]
 
 
 reset_launches()

@@ -35,6 +35,8 @@ import math
 
 import torch
 
+from repro_torch.kernels.ops import sm_count
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 GROUPS = tuple(range(1, 17))
@@ -147,10 +149,6 @@ def _check_operands(tensors, q: torch.Tensor) -> None:
         raise ValueError("tiered decode kernel takes contiguous operands on 16-byte boundaries")
 
 
-def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def rows_plan(q: torch.Tensor, hot_k, hot_v, cold_k, cold_v, lens) -> tuple[list[tuple[int, int, int]], int]:
     """Check the per-row operands, as the launcher does before any launch,
     and return (the lengths as int triples, the planned split count).
@@ -181,7 +179,7 @@ def rows_plan(q: torch.Tensor, hot_k, hot_v, cold_k, cold_v, lens) -> tuple[list
     _check_operands((q, *hot_k, *hot_v, *cold_k, *cold_v), q)
     tiles = head_tile(h // kv)[1]
     n_keys = max(hot_len + cold_len for hot_len, cold_len, _ in lens)
-    return lens, plan_splits(n_keys, n * kv * tiles, _sms(q.device), blocks_per_sm(h // kv))
+    return lens, plan_splits(n_keys, n * kv * tiles, sm_count(q.device), blocks_per_sm(h // kv))
 
 
 def rows_launch_args(q, hot_k, hot_v, cold_k, cold_v, lens, n_split: int, out, scratch) -> tuple:
@@ -245,7 +243,7 @@ def tiered_decode_attention_fwd(
     _check_operands(tensors, q)
     gt, tiles = head_tile(h // kv)
     if n_split is None:
-        n_split = plan_splits(hot_len + cold_len, b * kv * tiles, _sms(q.device), blocks_per_sm(h // kv))
+        n_split = plan_splits(hot_len + cold_len, b * kv * tiles, sm_count(q.device), blocks_per_sm(h // kv))
     out = torch.empty_like(q)
     scratch = torch.empty(b * h * n_split * (d + 2), dtype=torch.float32, device=q.device) if n_split > 1 else None
     lib = load("tiered_decode")

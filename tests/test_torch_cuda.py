@@ -389,7 +389,7 @@ def _mlstm_inputs(g, b, h, s, d, dt, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [32, 64, 384])
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 384])
 def test_cuda_mlstm_matches_plain(cuda_device, dtype, d):
     """The chunkwise mLSTM kernel against ``ref.mlstm_ref``: h and the
     carry-out, from the empty history (None, and an m = -inf carry-in), over
@@ -416,6 +416,44 @@ def test_cuda_mlstm_matches_plain(cuda_device, dtype, d):
     for got, want in zip(carry2, want_carry):
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mlstm_waves_and_short_sequences(cuda_device, dtype):
+    """The mLSTM kernel against ``ref.mlstm_ref`` (h and the carry-out) where
+    the value-tile plan and the chunking reach their edges: B*H = 40 at
+    D = 384 (more blocks than one wave), B*H = 1 (the narrow tile), S = 5
+    (shorter than one chunk), S = 64 (whole chunks only), and a carry-in;
+    each launch takes the tile the plan picks, and both D = 384 tiles run."""
+    from repro_torch.kernels.mlstm import mlstm_chunkwise_fwd, plan_tile_v
+
+    dt = getattr(torch, dtype)
+    tol = MLSTM_TOL[dtype]
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    sms = ops.sm_count(cuda_device)
+    cases = [(8, 5, 70, 384, False), (1, 1, 77, 384, False), (2, 2, 5, 384, False),
+             (2, 2, 64, 384, False), (2, 3, 64, 128, True)]
+    ops.reset_launches()
+    tiles = []
+    for b, h, s, d, with_carry in cases:
+        q, k, v, ip, fl = _mlstm_inputs(g, b, h, s, d, dt, cuda_device)
+        state = None
+        if with_carry:
+            _, state = tref.mlstm_ref(*_mlstm_inputs(g, b, h, 40, d, dt, cuda_device))
+        got_h, got_carry = ops.mlstm_chunkwise(q, k, v, ip, fl, state)
+        want_h, want_carry = tref.mlstm_ref(q, k, v, ip, fl, state)
+        torch.cuda.synchronize()
+        tv = plan_tile_v(d, b * h, sms)
+        assert mlstm_chunkwise_fwd.last_grid == (tv, d // tv * b * h)
+        tiles.append(tv)
+        where = f"B*H {b * h}, S {s}, D {d}, TV {tv}"
+        torch.testing.assert_close(got_h, want_h, **tol, msg=lambda m: f"h at {where}: {m}")
+        for name, got, want in zip("Cnm", got_carry, want_carry):
+            torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{name} at {where}: {m}")
+    assert ops.launches()["mlstm"] == len(cases)
+    assert {tv for tv, (*_, d, _) in zip(tiles, cases) if d == 384} == {32, 48}
+    assert sum(r["launches"] for r in ops.mlstm_grid_launches()) == len(cases)
 
 
 @pytest.mark.cuda

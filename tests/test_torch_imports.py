@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: neither ``chip_smoke.py`` nor any module
-under ``src/repro_torch/`` imports ``jax`` or anything of the JAX package
-``repro`` (checked on the source, so lazy imports inside functions count)."""
+"""The PyTorch port stands alone: neither ``chip_smoke.py``, ``mlstm_card.py``
+nor any module under ``src/repro_torch/`` imports ``jax`` or anything of the
+JAX package ``repro`` (checked on the source, so lazy imports inside
+functions count)."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "mlstm_card.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -250,6 +250,36 @@ def test_mlstm_carry_continues_the_sequence():
         close(got_t, want_t, MLSTM)
 
 
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 384])
+def test_mlstm_tile_plan(d):
+    """The kernel's value-tile plan: each built TV divides D and fits a
+    block's shared memory, the list equals the (D, TV) pairs the CUDA source
+    instantiates, every plan for B*H = 1..256 is a built TV, and xlstm-125m's
+    prefill (D = 384) takes one wave of 128 blocks on 132 SMs at B*H = 16
+    and the narrow tile at batch 1 (B*H = 4: 48 blocks)."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import mlstm as tm
+
+    assert d in tm.HEAD_DIMS
+    built = tm.TILE_VS[d]
+    assert all(d % tv == 0 and tm.smem_bytes(d, tv) <= tm.SMEM_LIMIT for tv in built)
+    src = (Path(tm.__file__).resolve().parents[1] / "csrc" / "mlstm.cu").read_text()
+    cases = {(int(a), int(b)) for a, b in re.findall(r"MLSTM_CASE\((\d+), (\d+)\)", src)}
+    assert {tv for dd, tv in cases if dd == d} == set(built)
+    for bh in range(1, 257):
+        tv = tm.plan_tile_v(d, bh, 132)
+        assert tv in built and d % tv == 0 and tm.smem_bytes(d, tv) <= 232_448
+    if d == 384:
+        assert built == (32, 48)
+        tv = tm.plan_tile_v(384, 16, 132)
+        assert tv == 48 and d // tv * 16 == 128 <= 132
+        assert tm.plan_tile_v(384, 4, 132) == 32
+    else:
+        assert built == (32,)
+
+
 # ---------------------------------------------------------------- the models
 
 
