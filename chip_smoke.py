@@ -76,11 +76,29 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 11. serve_check_recurrentgemma / serve_check_xlstm  one period at full width
                  in fp32 (3 and 4 layers): kernel tokens equal plain tokens,
                  and prefill logits agree within 5e-3
-12. kernels      one entry per kernel: launches in the serve phases that run
+12. train        starcoder2-3b at full width (d_model 3072, 24/2 heads, d_ff
+                 12288, vocab 49152), cut to 2 of its 30 layers, bf16 compute
+                 and fp32 masters, through ``repro_torch.launch.train.run_training``
+                 (batch 8 x seq 1024, 8 steps, sync checkpoints every 4 into a
+                 ``TwoLevelStore`` under build/): an uninterrupted run, then one
+                 that fails at step 6 and restores step 4 (losses and final
+                 params equal to the uninterrupted run's at rtol 1e-5 / atol
+                 1e-6); step time, tokens/s, model TFLOP/s (6 N tokens / step),
+                 peak memory, data / checkpoint stalls, save MB/s, restore s,
+                 no kernel launched; then 2 steps profiled (``train_profile``)
+                 and the fp32 LM head's three GEMMs timed alone (``train_head``)
+13. train_check  reduced starcoder2 in fp32: 4 steps on the card against the
+                 same steps of the port on the CPU (step 1 within 1e-5, all
+                 within 1e-4 relative), every gradient finite and non-zero,
+                 the four kernel ops refusing CUDA inputs that require grad, a
+                 checkpoint of the card's state restoring on the CPU
+                 bit-identical
+14. phase_seconds  each phase's wall seconds, and the total from the build on
+15. kernels      one entry per kernel: launches in the serve phases that run
                  it, max error, times, bound
 
 Each serve phase zeroes the kernels' launch counts just before it serves and
-reads them just after, and asserts them, and that every bf16 flash launch
+reads them just after, and asserts them (``train`` too: it launches none), and that every bf16 flash launch
 took the tensor-core kernel (serve_sessions: before each of its two runs).  Every phase runs, at the configs' full depth.  The nvidia-smi line comes
 first; the last line is the contract line ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it, as does a machine without CUDA or a
@@ -94,6 +112,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -1218,6 +1237,233 @@ def recurrent_serve_check_phase(record: dict, arch: str, B: int, prompt_len: int
     del params
 
 
+# ----------------------------------------------------------------------- train
+
+
+TRAIN_LAYERS = 2  # depth cut of starcoder2-3b (30 layers): the checkpoint bytes set the phase's time
+
+
+def train_phase(record: dict, out_dir: Path | None) -> None:
+    """starcoder2-3b at full width, cut to TRAIN_LAYERS layers, bf16 compute
+    and fp32 masters, through ``repro_torch.launch.train.run_training``
+    (batch 8 x seq 1024, 8 steps, sync checkpoints every 4 into a
+    ``TwoLevelStore`` under build/): an uninterrupted run, then one that
+    loses its host at step 6 and restores step 4; then 2 steps profiled and
+    the fp32 LM head's GEMMs timed alone."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config, make_model
+    from repro_torch.core import TwoLevelStore
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import run_training
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.failure import FailureInjector
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, steps, every, fail_at = 8, 1024, 8, 4, 6
+    cfg = dataclasses.replace(get_config("starcoder2_3b"), n_layers=TRAIN_LAYERS)
+    store_kw = dict(mem_capacity_bytes=256 * 2**20, block_bytes=4 * 2**20)  # the training CLI's store
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="train_", dir=ROOT / "build"))
+    stamps: list[float] = []
+    run_kw = dict(total_steps=steps, global_batch=B, seq_len=S, ckpt_every=every, ckpt_mode="sync",
+                  device="cuda", on_step=lambda i, m: stamps.append(time.perf_counter()))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with TwoLevelStore(str(root / "clean"), **store_kw) as st:
+            clean = run_training(cfg, st, **run_kw)
+        clean_s = time.perf_counter() - t0
+        launches = ops.launches()
+        peak = torch.cuda.max_memory_allocated()
+        # step i's interval ends at its loss; those after a save hold the save
+        intervals = [stamps[i] - stamps[i - 1] for i in range(1, steps) if i % every]
+        step_s = sorted(intervals)[len(intervals) // 2]
+        shutil.rmtree(root / "clean")
+        ckpt_bytes = sum(x.numel() * x.element_size() if isinstance(x, torch.Tensor) else x.nbytes
+                         for x in tree.leaves(clean.state))
+        n_params = sum(p.numel() for p in tree.leaves(clean.state["params"]))
+
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with TwoLevelStore(str(root / "failed"), **store_kw) as st:
+            failed = run_training(cfg, st, injector=FailureInjector([fail_at]), **{**run_kw, "on_step": None})
+        failed_s = time.perf_counter() - t0
+        launches_failed = ops.launches()
+        if any(launches.values()) or any(launches_failed.values()):
+            raise AssertionError(f"training launched kernels: {launches} / {launches_failed}")
+        if failed.restarts != 1 or len(failed.losses) != steps + fail_at - every:
+            raise AssertionError(f"restart: {failed.restarts} restarts, {len(failed.losses)} losses")
+        loss_apart = max(abs(a - b) / abs(b) for a, b in zip(failed.losses[-(steps - every):],
+                                                            clean.losses[-(steps - every):]))
+        same_before = failed.losses[:fail_at] == clean.losses[:fail_at]
+        param_apart = 0.0
+        for a, b in zip(tree.leaves(failed.state["params"]), tree.leaves(clean.state["params"])):
+            if not torch.allclose(a, b, rtol=1e-5, atol=1e-6):
+                raise AssertionError("the restored run's final params differ from the uninterrupted run's")
+            param_apart = max(param_apart, float((a - b).abs().max()))
+        if loss_apart > 1e-5:
+            raise AssertionError(f"restored losses {failed.losses} vs {clean.losses}")
+        if not all(map(math.isfinite, clean.losses)):
+            raise AssertionError(f"non-finite losses {clean.losses}")
+
+        stalls = clean.stalls
+        tokens = B * S
+        row = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab, params=n_params,
+                   batch=B, seq=S, steps=steps, ckpt_every=every, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+                   losses=clean.losses, step_s=step_s, step_intervals_s=intervals, tokens_per_s=tokens / step_s,
+                   model_tflops=6 * n_params * tokens / step_s / 1e12,
+                   peak_device_bytes=peak, run_s=clean_s, failed_run_s=failed_s,
+                   data_stall_s=stalls["data_stall_total_s"], ckpt_stall_s=stalls["ckpt_stall_total_s"],
+                   save_critical_s=stalls["ckpt_save_critical_s"], saves=steps // every, ckpt_bytes=ckpt_bytes,
+                   save_mb_per_s=steps // every * ckpt_bytes / stalls["ckpt_save_critical_s"] / 1e6,
+                   restore_s=failed.stalls["ckpt_restore_total_s"], restarts=failed.restarts,
+                   restored_losses=failed.losses, restored_losses_apart=loss_apart,
+                   losses_before_failure_equal=same_before, restored_params_max_abs_apart=param_apart,
+                   loader=clean.loader_stats, launches=launches)
+        emit("train", **row)
+
+        model = make_model(cfg)
+        step = make_train_step(model, cfg, AdamW(learning_rate=1e-4))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen, device="cuda")
+        batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+        box = {"state": clean.state}
+        del clean, failed
+
+        def two_steps():
+            for _ in range(2):
+                box["state"], _ = step(box["state"], batch)
+
+        two_steps()  # warm
+        table = out_dir / "profile_train_2_steps.txt" if out_dir else None
+        prof = profile_breakdown(two_steps, table, top=8)
+        emit("train_profile", part="2_steps", **prof)
+        del box, batch
+        head = time_head(B * S, cfg.d_model, cfg.vocab)
+        emit("train_head", **head, step_s=step_s, share_of_step=head["ms"] / 1e3 / step_s)
+        record["train"] = dict(row, profile=prof, head=head)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def time_head(rows: int, d: int, vocab: int) -> dict:
+    """The tied fp32 LM head alone, as training runs it (TF32 off): logits =
+    x @ table.T forward, and both gradients backward — three fp32 GEMMs of
+    2*rows*d*vocab flops each — timed with CUDA events."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(rows, d, generator=gen, device="cuda").requires_grad_()
+    w = (torch.randn(vocab, d, generator=gen, device="cuda") * 0.02).requires_grad_()
+    g = torch.randn(rows, vocab, generator=gen, device="cuda")
+
+    def fwd_bwd():
+        (x @ w.T).backward(g)
+
+    ms = time_ms(fwd_bwd, iters=5, warmup=1)
+    flops = 3 * 2 * rows * d * vocab
+    bound_ms, bound_by = bound(4 * (rows * d + vocab * d + rows * vocab) * 2, flops, "float32")
+    return dict(rows=rows, d=d, vocab=vocab, ms=ms, tflops=flops / ms / 1e9, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def train_check_phase(record: dict) -> None:
+    """The training step on the card against the same steps of the port on
+    the CPU: reduced starcoder2 in fp32, TF32 off, the same initial params
+    (drawn on the CPU) and batches; every parameter's gradient after step 1
+    finite and non-zero; the four kernel ops refusing CUDA inputs that
+    require grad; a checkpoint of the card's state restoring on the CPU
+    bit-identical."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_reduced, make_model
+    from repro_torch.core import TwoLevelStore
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import init_state, make_loss_fn, make_train_step
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime import CheckpointManager
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_reduced("starcoder2_3b"), dtype="float32")
+    model = make_model(cfg)
+    opt = AdamW(learning_rate=1e-3)
+    cpu_state, _ = init_state(model, cfg, opt, seed=0, device="cpu")
+    cuda_state = tree.tree_map(lambda t: t.to("cuda"), cpu_state)
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab, (4, 65))) for _ in range(4)]
+
+    tracked = tree.tree_map(lambda p: p.detach().requires_grad_(), cuda_state["params"])
+    loss, _ = make_loss_fn(model, cfg)(tracked, {"inputs": batches[0][:, :-1].cuda(), "labels": batches[0][:, 1:].cuda()})
+    loss.backward()
+    bad = [tree.keystr(path) for path, p in tree.flatten_with_path(tracked)
+           if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.abs().sum() > 0)]
+    if bad:
+        raise AssertionError(f"parameters without a finite non-zero gradient: {bad}")
+    del tracked
+
+    step = make_train_step(model, cfg, opt)
+    losses = {"cpu": [], "cuda": []}
+    states = {"cpu": cpu_state, "cuda": cuda_state}
+    for dev in ("cpu", "cuda"):
+        for toks in batches:
+            toks = toks.to(dev)
+            states[dev], m = step(states[dev], {"inputs": toks[:, :-1], "labels": toks[:, 1:]})
+            losses[dev].append(float(m["loss"]))
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    if rel[0] > 1e-5 or max(rel) > 1e-4:
+        raise AssertionError(f"card losses {losses['cuda']} vs CPU {losses['cpu']}")
+
+    refused = {}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device="cuda").requires_grad_()
+    calls = {
+        "flash_attention": lambda: ops.flash_attention(rnd(1, 2, 16, 32), rnd(1, 2, 16, 32), rnd(1, 2, 16, 32)),
+        "tiered_decode": lambda: ops.tiered_decode_attention(rnd(1, 2, 1, 32), rnd(1, 2, 8, 32), rnd(1, 2, 8, 32),
+                                                             rnd(1, 2, 16, 32), rnd(1, 2, 16, 32), 8, 16),
+        "rglru": lambda: ops.rglru_scan(torch.rand(1, 16, 32, device="cuda"), rnd(1, 16, 32)),
+        "mlstm": lambda: ops.mlstm_chunkwise(rnd(1, 1, 16, 32), rnd(1, 1, 16, 32), rnd(1, 1, 16, 32),
+                                             rnd(1, 1, 16), rnd(1, 1, 16)),
+    }
+    ops.reset_launches()
+    for name, call in calls.items():
+        try:
+            call()
+            refused[name] = False
+        except RuntimeError as e:
+            refused[name] = "no backward" in str(e)
+    if not all(refused.values()) or any(ops.launches().values()):
+        raise AssertionError(f"kernel ops under autograd: refused {refused}, launches {ops.launches()}")
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_check_", dir=ROOT / "build")
+    try:
+        with TwoLevelStore(root) as st:
+            CheckpointManager(st, tag="t").save(4, states["cuda"])
+        with TwoLevelStore(root) as st:
+            _, back = CheckpointManager(st, tag="t").restore(tree.tree_map(torch.zeros_like, cpu_state))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    bit_identical = all(torch.equal(a, b.cpu()) and a.device.type == "cpu"
+                        for a, b in zip(tree.leaves(back), tree.leaves(states["cuda"])))
+    if not bit_identical:
+        raise AssertionError("the card's checkpoint did not restore bit-identical on the CPU")
+    row = dict(arch=cfg.name, dtype="float32", cuda_losses=losses["cuda"], cpu_losses=losses["cpu"],
+               losses_rel_apart=rel, grads_finite_nonzero=True, ops_refused=refused,
+               checkpoint_cuda_to_cpu_bit_identical=bit_identical)
+    emit("train_check", **row)
+    record["train_check"] = row
+
+
 # ------------------------------------------------------------------------- main
 
 
@@ -1303,7 +1549,7 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     record: dict = {}
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     paths = ops.build()
     emit("build", seconds=time.perf_counter() - t0, arch="sm_90a",
          libraries={n: str(p.relative_to(ROOT)) for n, p in paths.items()})
@@ -1312,20 +1558,33 @@ def main() -> int:
             log = p.with_suffix(".log")
             if log.exists():
                 shutil.copy(log, out_dir / f"ptxas_{p.stem}.log")
-    tiered_decode_phase(record)
-    tiered_rows_phase(record)
-    flash_phase(record)
-    rglru_phase(record)
-    mlstm_phase(record)
-    serve_phase(record, out_dir)
-    serve_check_phase(record)
-    serve_store_phase(record)
-    serve_sessions_phase(record, out_dir)
-    serve_sessions_check_phase(record)
-    recurrent_serve_phase(record, out_dir, "recurrentgemma_9b", B=4, prompt_len=4096, tokens=64)
-    recurrent_serve_phase(record, out_dir, "xlstm_125m", B=4, prompt_len=2048, tokens=64)
-    recurrent_serve_check_phase(record, "recurrentgemma_9b", B=2, prompt_len=2100, tokens=16)
-    recurrent_serve_check_phase(record, "xlstm_125m", B=2, prompt_len=16, tokens=8)
+    phases = [
+        ("tiered_decode", lambda: tiered_decode_phase(record)),
+        ("tiered_decode_rows", lambda: tiered_rows_phase(record)),
+        ("flash", lambda: flash_phase(record)),
+        ("rglru", lambda: rglru_phase(record)),
+        ("mlstm", lambda: mlstm_phase(record)),
+        ("serve", lambda: serve_phase(record, out_dir)),
+        ("serve_check", lambda: serve_check_phase(record)),
+        ("serve_store", lambda: serve_store_phase(record)),
+        ("serve_sessions", lambda: serve_sessions_phase(record, out_dir)),
+        ("serve_sessions_check", lambda: serve_sessions_check_phase(record)),
+        ("serve_recurrentgemma", lambda: recurrent_serve_phase(record, out_dir, "recurrentgemma_9b", B=4,
+                                                               prompt_len=4096, tokens=64)),
+        ("serve_xlstm", lambda: recurrent_serve_phase(record, out_dir, "xlstm_125m", B=4, prompt_len=2048, tokens=64)),
+        ("serve_check_recurrentgemma", lambda: recurrent_serve_check_phase(record, "recurrentgemma_9b", B=2,
+                                                                           prompt_len=2100, tokens=16)),
+        ("serve_check_xlstm", lambda: recurrent_serve_check_phase(record, "xlstm_125m", B=2, prompt_len=16,
+                                                                  tokens=8)),
+        ("train", lambda: train_phase(record, out_dir)),
+        ("train_check", lambda: train_check_phase(record)),
+    ]
+    seconds = {}
+    for name, run in phases:
+        t0 = time.perf_counter()
+        run()
+        seconds[name] = time.perf_counter() - t0
+    emit("phase_seconds", **seconds, total=time.perf_counter() - t_start)
     print(json.dumps(kernels_line(record)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -10,7 +10,7 @@ import importlib
 
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeCell, applicable_shapes
 
-ARCH_IDS = ["qwen3_8b", "xlstm_125m", "recurrentgemma_9b"]
+ARCH_IDS = ["starcoder2_3b", "qwen3_8b", "xlstm_125m", "recurrentgemma_9b"]
 
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 

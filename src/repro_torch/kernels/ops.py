@@ -3,7 +3,9 @@
 Each public op takes its tensors where they lie: on a CUDA tensor it
 launches the hand-written Hopper kernel (``csrc/*.cu``) or raises; on a CPU
 tensor it runs the kernel's plain PyTorch version from ``ref.py``.  There is
-no fallback from one to the other.
+no fallback from one to the other.  The kernels are forward only: on CUDA
+tensors that autograd would track, an op raises (``no_backward``) rather
+than return a result cut off from the graph.
 
 Each op counts its kernel launches in ``op.launches`` (a plain integer on
 the function), incremented only where the kernel is launched, so a run can
@@ -124,6 +126,20 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def no_backward(op: str, *tensors) -> None:
+    """Raise if autograd would track any of ``tensors`` (tensors, or lists
+    and tuples of them): a kernel's output has no ``grad_fn``, so handing it
+    back would silently drop the gradient of everything upstream."""
+    if not torch.is_grad_enabled():
+        return
+    flat = [t for x in tensors for t in (x if isinstance(x, (list, tuple)) else (x,))]
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in flat):
+        raise RuntimeError(
+            f"{op}: the CUDA kernel has no backward, and an input requires grad; "
+            "call it under torch.no_grad(), or train through the plain attention (attn_impl='xla')"
+        )
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, H, S, D)
     k: torch.Tensor,  # (B, KV, T, D)
@@ -134,6 +150,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """Tiled attention forward. q: (B,H,S,D); k,v: (B,KV,T,D) -> (B,H,S,D)."""
     if q.is_cuda:
+        no_backward("flash_attention", q, k, v)
         from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_path
 
         out = flash_attention_fwd(q, k, v, causal=causal, window=window, logit_softcap=logit_softcap)
@@ -160,6 +177,7 @@ def tiered_decode_attention(
     if ring_newest is None:
         ring_newest = hot_len - 1
     if q.is_cuda:
+        no_backward("tiered_decode_attention", q, hot_k, hot_v, cold_k, cold_v)
         from repro_torch.kernels.tiered_decode import tiered_decode_attention_fwd
 
         out = tiered_decode_attention_fwd(q, hot_k, hot_v, cold_k, cold_v, hot_len, cold_len, ring_newest)
@@ -181,6 +199,7 @@ def tiered_decode_rows_attention(
     decode).  Counted in its own ``launches``, beside
     ``tiered_decode_attention``'s: one source, two entries."""
     if q.is_cuda:
+        no_backward("tiered_decode_rows_attention", q, hot_k, hot_v, cold_k, cold_v)
         from repro_torch.kernels.tiered_decode import tiered_decode_rows_fwd
 
         out = tiered_decode_rows_fwd(q, hot_k, hot_v, cold_k, cold_v, lens)
@@ -193,6 +212,7 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + x_t along S of (B, S, W) inputs from a zero
     carry (fold a carry-in into x_0); fp32 carry, output in x's dtype."""
     if x.is_cuda:
+        no_backward("rglru_scan", a, x)
         from repro_torch.kernels.rglru import rglru_scan_fwd
 
         out = rglru_scan_fwd(a, x)
@@ -212,6 +232,7 @@ def mlstm_chunkwise(
     """mLSTM over S from the carry ``state`` = (C, n, m) (the empty history
     if None).  Returns (h in q's dtype, the carry-out (C, n, m) in fp32)."""
     if q.is_cuda:
+        no_backward("mlstm_chunkwise", q, k, v, i_pre, f_log, state)
         from repro_torch.kernels.mlstm import mlstm_chunkwise_fwd
 
         out = mlstm_chunkwise_fwd(q, k, v, i_pre, f_log, state)

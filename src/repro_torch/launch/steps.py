@@ -1,5 +1,7 @@
-"""Serving steps of the port — the serving half of ``repro/launch/steps.py``:
-greedy prefill/decode steps, and two-level (tiered KV) serving."""
+"""Step builders of the port — ``repro/launch/steps.py`` but its input
+specs and sharding (no mesh here): the loss and train step of the dense
+training plane, greedy prefill/decode steps, and two-level (tiered KV)
+serving."""
 
 from __future__ import annotations
 
@@ -10,9 +12,115 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import make_layer_cache
+from repro_torch.optim.adamw import AdamW, apply_updates
 from repro_torch.serving import TieredKVCache
+from repro_torch.tree import tree_map
 
 PyTree = Any
+
+Z_LOSS_WEIGHT = 1e-4
+IGNORE_INDEX = -100
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean CE over non-ignored positions + z-loss. logits fp32 (B,S,V)."""
+    mask = (labels != IGNORE_INDEX).to(torch.float32)
+    safe = torch.where(labels == IGNORE_INDEX, 0, labels).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    ce = (logz - gold) * mask
+    n = torch.clamp(mask.sum(), min=1.0)
+    loss = ce.sum() / n
+    zloss = Z_LOSS_WEIGHT * ((logz * mask) ** 2).sum() / n
+    return loss + zloss, loss
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+
+def make_loss_fn(model, cfg: ArchConfig) -> Callable:
+    """The dense branch of the reference's loss: CE + z-loss over
+    ``model.train_logits``.  The other branches (MoE aux, MTP, encoder-decoder,
+    VLM) and recurrent training wait for their slices (``ROADMAP.md``)."""
+    missing = [name for name, on in (
+        ("moe", cfg.moe is not None), ("mtp", cfg.mtp), ("encdec", cfg.encdec is not None),
+        ("vlm", cfg.vlm is not None), ("recurrent", cfg.recurrent is not None),
+    ) if on]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: training with {', '.join(missing)} layers is not ported yet (see ROADMAP.md)")
+
+    def loss_fn(params: PyTree, batch: dict) -> tuple[torch.Tensor, dict]:
+        logits, _ = model.train_logits(params, batch["inputs"])
+        total, ce = cross_entropy(logits, batch["labels"])
+        return total, {"ce": ce.detach()}
+
+    return loss_fn
+
+
+def make_train_step(model, cfg: ArchConfig, optimizer: AdamW, accum_steps: int = 1) -> Callable:
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    ``accum_steps > 1`` runs the batch as that many microbatches one after
+    another, accumulating grads in fp32 — the global batch at a bounded
+    activation memory.  The grads are those of the params as the state
+    holds them (fp32 masters); the layers cast to the compute dtype inside
+    the graph, as the reference's do.
+    """
+    loss_fn = make_loss_fn(model, cfg)
+
+    def grad_fn(params: PyTree, batch: dict) -> tuple[torch.Tensor, dict, PyTree]:
+        tracked = tree_map(lambda p: p.detach().requires_grad_(p.is_floating_point()), params)
+        with torch.enable_grad():
+            total, metrics = loss_fn(tracked, batch)
+            total.backward()
+        grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, tracked)
+        return total.detach(), metrics, grads
+
+    def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        params = state["params"]
+        if accum_steps == 1:
+            loss, metrics, grads = grad_fn(params, batch)
+        else:
+            micro = {k: v.reshape(accum_steps, v.shape[0] // accum_steps, *v.shape[1:]) for k, v in batch.items()}
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+            loss = 0.0
+            for i in range(accum_steps):
+                mb_loss, metrics, mb_grads = grad_fn(params, {k: v[i] for k, v in micro.items()})
+                grads = tree_map(lambda a, g: a + g.to(torch.float32) / accum_steps, grads, mb_grads)
+                loss = loss + mb_loss / accum_steps
+                del mb_grads
+
+        updates, opt_state, opt_metrics = optimizer.update(grads, state["opt"], params)
+        new_params = apply_updates(params, updates)
+        new_state = {"params": new_params, "opt": opt_state, "step": state["step"] + 1}
+        metrics = dict(metrics, loss=loss, **opt_metrics)
+        return new_state, metrics
+
+    return train_step
+
+
+def init_state(model, cfg: ArchConfig, optimizer: AdamW, seed: int = 0, device="cuda") -> tuple[dict, PyTree]:
+    """(state, axes) — params in ``cfg.param_dtype`` drawn from ``seed`` by the
+    port's own generator (``nn.module.init_with_axes``, as serving's
+    ``init_params``), zero moments, step 0.  Axes only cover the params."""
+    from repro_torch.nn.module import init_with_axes
+
+    params, axes = init_with_axes(model.init, seed, device=device, dtype=getattr(torch, cfg.param_dtype))
+    step = torch.zeros((), dtype=torch.int32, device=device)
+    return {"params": params, "opt": optimizer.init(params), "step": step}, axes
+
+
+# ---------------------------------------------------------------------------
+# Serving steps
+# ---------------------------------------------------------------------------
 
 
 def make_prefill_step(model, cfg: ArchConfig) -> Callable:

@@ -1,5 +1,5 @@
 """Decoder-only LM of the port — ``repro/models/lm.py`` for the dense GQA
-family (qwen3-8b) and the recurrent ones: the RG-LRU hybrid with local
+family (qwen3-8b, starcoder2-3b) and the recurrent ones: the RG-LRU hybrid with local
 attention (recurrentgemma-9b) and xLSTM (xlstm-125m).  MoE, MLA, VLM
 patches and the MTP head wait for their slices and are refused at
 construction.
@@ -7,9 +7,11 @@ construction.
 The stack is always unrolled (``prefix_0 .. prefix_{L-1}``): PyTorch runs
 eagerly and has no ``lax.scan``, and the two-level cache is host state that
 could not ride a scan carry anyway.  ``nn.module.params_from_jax`` unrolls a
-scanned JAX tree into the same keys.
+scanned JAX tree into the same keys, and ``nn.module.to_reference_layout``
+stacks them back (``stack_plan``) for a checkpoint either package restores.
 
-Three entry points (pure functions of params and caches):
+Three entry points (pure functions of params and caches; only the first is
+differentiable):
 
     train_logits(params, tokens)        -> (logits, aux)
     prefill(params, tokens, caches)     -> (logits, new_caches)
@@ -61,9 +63,31 @@ def layer_specs(cfg: ArchConfig) -> list[LayerSpec]:
     return specs
 
 
+def _period_len(cfg: ArchConfig) -> int:
+    if cfg.recurrent is not None:
+        return cfg.recurrent.attn_every if cfg.recurrent.kind == "rglru" else cfg.recurrent.slstm_every
+    if cfg.global_every > 0:
+        return cfg.global_every
+    return 1
+
+
 def stack_plan(cfg: ArchConfig) -> tuple[list[LayerSpec], list[LayerSpec], int, list[LayerSpec]]:
-    """(prefix, period, n_periods, suffix): always the unrolled plan."""
-    return layer_specs(cfg), [], 0, []
+    """(prefix, period, n_periods, suffix): the JAX package's partition of the
+    layer list, which lays out its parameter tree (scanned periods when
+    ``cfg.scan_layers``).  The port's own stack is always unrolled
+    (``LM.prefix``); ``nn.module.to_reference_layout`` re-stacks it by this plan."""
+    specs = layer_specs(cfg)
+    n_prefix = cfg.moe.first_k_dense if (cfg.moe and cfg.attn_type == "mla") else 0
+    plen = _period_len(cfg)
+    body = len(specs) - n_prefix
+    n_periods = body // plen
+    n_suffix = body - n_periods * plen
+    prefix = specs[:n_prefix]
+    period = specs[n_prefix : n_prefix + plen] if n_periods else []
+    suffix = specs[len(specs) - n_suffix :] if n_suffix else []
+    if not cfg.scan_layers:
+        return specs, [], 0, []
+    return prefix, period, n_periods, suffix
 
 
 _MIXER_INIT = {"gqa": L.attention_init, "rglru": R.rglru_init, "mlstm": R.mlstm_init, "slstm": R.slstm_init}
@@ -125,7 +149,8 @@ class LM:
         if missing:
             raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported yet")
         self.cfg = cfg
-        self.prefix, self.period, self.n_periods, self.suffix = stack_plan(cfg)
+        # Unrolled: every layer is prefix_i (see the module docstring).
+        self.prefix, self.period, self.n_periods, self.suffix = layer_specs(cfg), [], 0, []
 
     def init(self, scope: Scope) -> None:
         cfg = self.cfg
@@ -155,9 +180,11 @@ class LM:
         x = L.norm_apply(params["final_norm"], x, self.cfg)
         return L.logits_apply(params["embed"], params.get("head"), x, self.cfg)
 
-    @torch.no_grad()
     def train_logits(self, params: Params, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence causal logits. Returns (logits fp32, aux_loss)."""
+        """Full-sequence causal logits. Returns (logits fp32, aux_loss).
+
+        Differentiable (the training forward, ``launch.steps.make_loss_fn``):
+        autograd tracks it when the params require grad."""
         x = L.embedding_apply(params["embed"], tokens, self.cfg)
         x, _ = self._run_stack(params, x, None, "train")
         return self._logits(params, x), torch.zeros((), device=x.device)

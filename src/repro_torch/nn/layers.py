@@ -1,7 +1,9 @@
 """Dense layer library of the port: norms, projections, RoPE, GQA attention
 (sliding window, qk-norm, dict or two-level KV cache) and MLPs — the port of
 ``repro/nn/layers.py`` up to its MLA and MoE sections, which wait for their
-slice.
+slice.  Every apply function is differentiable on the plain path; training
+attends through ``_attend`` (``attn_impl="xla"``, as the reference trains),
+since the flash kernel has no backward.
 
 Conventions (as in the JAX package):
 * compute runs in ``cfg.dtype``; softmax, normalisers and logits in fp32;
@@ -101,7 +103,10 @@ def embedding_init(scope: Scope, name: str, vocab: int, dim: int) -> None:
 
 
 def embedding_apply(p: Params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    x = p["table"][tokens].to(cdtype(cfg))
+    # F.embedding, not table[tokens]: its backward on CUDA sums each row's
+    # gradients in a fixed order, where indexing's accumulates with atomics,
+    # so a training run and its restart from a checkpoint agree bit for bit.
+    x = F.embedding(tokens, p["table"]).to(cdtype(cfg))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
     return x

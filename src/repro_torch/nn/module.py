@@ -123,12 +123,10 @@ _SLOT = re.compile(r"^slot_(\d+)$")
 def params_from_jax(tree: PyTree, device="cuda", dtype=None) -> PyTree:
     """Convert a JAX parameter tree (numpy-convertible leaves) to tensors.
 
-    Key paths are kept (``prefix_0/mixer/wq`` stays ``(d, H, hd)``).  The
-    port's stack is always unrolled, so a scanned JAX tree — ``prefix_i``,
-    then ``periods/slot_j`` with a leading period axis, then ``suffix_i``
-    (``stack_plan``) — is renumbered into consecutive ``prefix_i`` layers;
-    both ``scan_layers`` settings therefore load into the same model.
-    ``dtype`` (optional) casts every floating leaf.
+    Key paths are kept (``prefix_0/mixer/wq`` stays ``(d, H, hd)``) and the
+    stack is unrolled (``from_reference_layout``), so both ``scan_layers``
+    settings load into the same model.  ``dtype`` (optional) casts every
+    floating leaf.
     """
 
     def leaf(x) -> torch.Tensor:
@@ -136,6 +134,19 @@ def params_from_jax(tree: PyTree, device="cuda", dtype=None) -> PyTree:
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         return t.to(device)
+
+    return from_reference_layout(tree, leaf)
+
+
+def from_reference_layout(tree: PyTree, leaf: Callable = lambda x: x) -> PyTree:
+    """The JAX package's parameter layout -> the port's unrolled one.
+
+    The reference stacks the repeating layers: ``prefix_i``, then
+    ``periods/slot_j`` with a leading period axis, then ``suffix_i``
+    (``models.lm.stack_plan``).  The port's stack is always unrolled, so the
+    layers are renumbered into consecutive ``prefix_i``; ``leaf`` maps every
+    leaf on the way (tensors and numpy arrays are indexed as they are).
+    """
 
     def conv(node):
         return {k: conv(v) for k, v in node.items()} if isinstance(node, dict) else leaf(node)
@@ -168,13 +179,51 @@ def params_from_jax(tree: PyTree, device="cuda", dtype=None) -> PyTree:
     return out
 
 
+def to_reference_layout(params: PyTree, cfg) -> PyTree:
+    """The port's unrolled layers -> the JAX package's layout for ``cfg``
+    (the inverse of ``from_reference_layout``).
+
+    The port's ``prefix_0 .. prefix_{L-1}`` are split by the reference's
+    ``stack_plan`` (which honours ``cfg.scan_layers``): the leading layers
+    stay ``prefix_i``, the periods' layers are stacked into
+    ``periods/slot_j`` along a new leading axis (``torch.stack`` for
+    tensors, ``np.stack`` for arrays, so this copies them) and the rest
+    become ``suffix_i``.  A checkpoint of the result names and lays out
+    every leaf as the JAX package's does.
+    """
+    from repro_torch.models.lm import stack_plan  # models.lm imports this module
+
+    prefix, period, n_periods, suffix = stack_plan(cfg)
+    layers = [params[f"prefix_{i}"] for i in range(cfg.n_layers)]
+    out = {k: v for k, v in params.items() if not _LAYER.match(k)}
+    for i in range(len(prefix)):
+        out[f"prefix_{i}"] = layers[i]
+    if n_periods:
+        base = len(prefix)
+        out["periods"] = {
+            f"slot_{j}": _stack([layers[base + p * len(period) + j] for p in range(n_periods)])
+            for j in range(len(period))
+        }
+    for i in range(len(suffix)):
+        out[f"suffix_{i}"] = layers[len(prefix) + n_periods * len(period) + i]
+    return out
+
+
+def _stack(trees: list) -> PyTree:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], torch.Tensor):
+        return torch.stack(trees)
+    return np.stack(trees)
+
+
 def _leading_dim(node) -> int:
     while isinstance(node, dict):
         node = next(iter(node.values()))
-    return int(np.shape(node)[0])
+    return int(node.shape[0])
 
 
 def _index_leading(node, i: int):
     if isinstance(node, dict):
         return {k: _index_leading(v, i) for k, v in node.items()}
-    return np.asarray(node)[i]
+    return node[i] if isinstance(node, torch.Tensor) else np.asarray(node)[i]

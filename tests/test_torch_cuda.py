@@ -477,3 +477,70 @@ def test_cuda_recurrent_serve_matches_plain(cuda_device, arch):
     assert launches["flash_attention"] == kinds.count("gqa")
     plain, *_ = serve_loop(dataclasses.replace(base, attn_impl="xla"), 2, 40, 8, device=cuda_device)
     torch.testing.assert_close(kern, plain, rtol=0, atol=0)
+
+
+def _grad_inputs(device):
+    g = torch.Generator(device=device).manual_seed(0)
+    rnd = lambda *s: torch.randn(s, generator=g, device=device).requires_grad_()
+    return {
+        "flash_attention": lambda: ops.flash_attention(rnd(1, 2, 16, 32), rnd(1, 2, 16, 32), rnd(1, 2, 16, 32)),
+        "tiered_decode": lambda: ops.tiered_decode_attention(rnd(1, 2, 1, 32), rnd(1, 2, 8, 32), rnd(1, 2, 8, 32),
+                                                             rnd(1, 2, 16, 32), rnd(1, 2, 16, 32), 8, 16),
+        "tiered_decode_rows": lambda: ops.tiered_decode_rows_attention(
+            rnd(1, 2, 1, 32), [rnd(1, 2, 8, 32)], [rnd(1, 2, 8, 32)], [rnd(1, 2, 16, 32)], [rnd(1, 2, 16, 32)],
+            torch.tensor([[8, 16, 7]], dtype=torch.int32)),
+        "rglru": lambda: ops.rglru_scan(torch.rand(1, 16, 32, device=device), rnd(1, 16, 32)),
+        "mlstm": lambda: ops.mlstm_chunkwise(rnd(1, 1, 16, 32), rnd(1, 1, 16, 32), rnd(1, 1, 16, 32),
+                                             rnd(1, 1, 16), rnd(1, 1, 16)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["flash_attention", "tiered_decode", "tiered_decode_rows", "rglru", "mlstm"])
+def test_cuda_ops_refuse_inputs_that_require_grad(cuda_device, op):
+    """A kernel has no backward: on CUDA inputs that require grad the op
+    raises before launching, instead of returning a detached result."""
+    before = (ops.launches(), ops.tiered_decode_rows_attention.launches)
+    with pytest.raises(RuntimeError, match="no backward"):
+        _grad_inputs(cuda_device)[op]()
+    assert (ops.launches(), ops.tiered_decode_rows_attention.launches) == before
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(cuda_device):
+    """One train step of reduced starcoder2 (fp32, TF32 off) on the card
+    against the port's CPU step from the same params and batch: the loss,
+    grad norm and every gradient within 2e-5; each updated parameter within
+    the 2 * lr an Adam first step can move a value whose gradient is near
+    zero, and the count and step advanced."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.configs import get_reduced, make_model
+    from repro_torch.launch.steps import init_state, make_loss_fn, make_train_step
+    from repro_torch.optim.adamw import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_reduced("starcoder2_3b"), dtype="float32")
+    model, opt = make_model(cfg), AdamW(learning_rate=1e-3)
+    cpu, _ = init_state(model, cfg, opt, seed=0, device="cpu")
+    gpu = tree.tree_map(lambda t: t.to(cuda_device), cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (4, 33)))
+    batch = lambda dev: {"inputs": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+    grads = {}
+    for name, state, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, cuda_device)):
+        params = tree.tree_map(lambda p: p.detach().requires_grad_(), state["params"])
+        make_loss_fn(model, cfg)(params, batch(dev))[0].backward()
+        grads[name] = [p.grad for p in tree.leaves(params)]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-5, atol=2e-5 * float(b.abs().max()))
+    step = make_train_step(model, cfg, opt)
+    new_cpu, m_cpu = step(cpu, batch("cpu"))
+    new_gpu, m_gpu = step(gpu, batch(cuda_device))
+    for key in ("loss", "ce", "grad_norm", "lr"):
+        torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key], rtol=2e-5, atol=0)
+    for a, b in zip(tree.leaves(new_gpu["params"]), tree.leaves(new_cpu["params"])):
+        assert float((a.cpu() - b).abs().max()) <= 2.0 * 1e-3 * (1 + 1e-3)
+    assert int(new_gpu["step"]) == int(new_gpu["opt"]["count"]) == 1

@@ -52,7 +52,7 @@ def init_both(init_fn_jax, seed=0):
     return params, params_from_jax(params, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["qwen3_8b", "recurrentgemma_9b", "xlstm_125m"])
+@pytest.mark.parametrize("arch", ["qwen3_8b", "recurrentgemma_9b", "xlstm_125m", "starcoder2_3b"])
 @pytest.mark.parametrize("which", ["get_config", "get_reduced"])
 def test_config_copy_matches_jax(which, arch):
     want = dataclasses.asdict(getattr(jcfgs, which)(arch))

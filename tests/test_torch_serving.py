@@ -307,3 +307,40 @@ def test_serve_entry_points_on_cpu():
     assert torch.equal(gen, gen_x)  # flash prefill (the default) and masked softmax agree
     gen2, _, _ = serve_loop(cfg, 2, 20, 4, device="cpu")
     assert tuple(gen2.shape) == (2, 5)
+
+
+@pytest.mark.parametrize("kind", ["dense", "tiered"])
+def test_starcoder2_decode_matches_jax(kind):
+    """Reduced starcoder2 (LayerNorm, biases, tanh-GELU MLP, tied head), fp32,
+    JAX params: greedy tokens equal and every step's logits within 1e-4 of
+    the largest |logit|, through the dense dict caches and through the
+    two-level caches (window 6, page 3: the ring wraps, pages stage)."""
+    from repro.launch.steps import make_tiered_caches as jax_tiered_caches
+    from repro_torch.launch.steps import make_tiered_caches
+
+    jc = dataclasses.replace(jcfgs.get_reduced("starcoder2_3b"), dtype="float32", scan_layers=False)
+    tc = dataclasses.replace(tcfgs.get_reduced("starcoder2_3b"), dtype="float32", scan_layers=False)
+    jm, tm = jcfgs.make_model(jc), tcfgs.make_model(tc)
+    jp, _ = jax_init(jm.init, jax.random.PRNGKey(0), dtype=jnp.float32)
+    tp = params_from_jax(jp, device="cpu")
+    b, s, steps = 2, 12, 6
+    prompts = np.random.default_rng(1).integers(0, jc.vocab, (b, s)).astype(np.int32)
+    if kind == "dense":
+        jcaches = jm.init_caches(b, s + steps + 1, jnp.float32)
+        tcaches = tm.init_caches(b, s + steps + 1, torch.float32, device="cpu")
+    else:
+        jcaches = jax_tiered_caches(jm, jc, b, s + steps + 1, 6, 3, jnp.float32)
+        tcaches = make_tiered_caches(tm, tc, b, s + steps + 1, 6, 3, torch.float32, device="cpu")
+    jl, jcaches = jm.prefill(jp, jnp.asarray(prompts), jcaches)
+    tl, tcaches = tm.prefill(tp, torch.from_numpy(prompts).long(), tcaches)
+    for _ in range(steps + 1):
+        want = np.asarray(jl[:, -1])
+        got = tl[:, -1].numpy()
+        assert np.abs(got - want).max() < 1e-4 * np.abs(want).max()
+        jtok, ttok = want.argmax(-1), got.argmax(-1)
+        np.testing.assert_array_equal(ttok, jtok)
+        jl, jcaches = jm.decode_step(jp, jnp.asarray(jtok[:, None], jnp.int32), jcaches)
+        tl, tcaches = tm.decode_step(tp, torch.from_numpy(ttok[:, None]).long(), tcaches)
+    if kind == "tiered":
+        st = tiered_cache_stats(tcaches)
+        assert st["layers"] == tc.n_layers and st["pages_staged"] > 0 and st["hot_fraction"] < 1.0

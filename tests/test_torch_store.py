@@ -28,6 +28,17 @@ def test_store_module_copy_matches_reference(module):
     assert port == ref.replace("repro.core", "repro_torch.core")
 
 
+@pytest.mark.parametrize("path", ["runtime/failure.py", "runtime/straggler.py", "data/pipeline.py",
+                                  "data/__init__.py", "configs/starcoder2_3b.py"])
+def test_training_module_copy_matches_reference(path):
+    """The training plane's copied modules: each equals its original with the
+    package read as ``repro_torch`` (the corpus a store holds is then the same
+    bytes whichever package wrote it)."""
+    ref = (ROOT / "src" / "repro" / path).read_text()
+    port = (ROOT / "src" / "repro_torch" / path).read_text()
+    assert port == ref.replace("repro.", "repro_torch.")
+
+
 def test_store_copies_import_only_each_other():
     """The copies form a closed set: every module of the package that one of
     them imports is itself a copy."""
