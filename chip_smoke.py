@@ -10,7 +10,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                  src/repro_torch/csrc, one nvcc per source, all started together
 3. tiered_decode the decode kernel against its plain version at the serving
                  shape (B=4, H=32, KV=8, D=128, W=256, C=1024), at the edge
-                 cases and at a long history (cold 7936 of C=8192), then at the
+                 cases and at a long history (cold 7936 of C=8192), at
+                 gemma3-1b's serving shape (4/1/256, cold 1920) and at D=12
+                 (zero-padded to 16 by the launcher), then at the
                  other configs' groups and head dims (H/KV/D 24/2/128, 48/8/128,
                  14/2/64, 4/1/256, 16/1/256, 5/1/128) over both tiers, no key,
                  hot only, cold only and a wrapped ring, each in bf16 and again
@@ -30,7 +32,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 4. flash         the flash kernel against its plain version at S=T=1024 causal,
                  T > S, window 64, softcap 30, ragged S=200, rows with no key
                  (T < S, at D=32 and D=128), D=64, recurrentgemma's D=256 MQA
-                 window-2048 S=4096 prefill and a ragged D=256 case, each in
+                 window-2048 S=4096 prefill, a ragged D=256 case, grok-1's
+                 prefill (H/KV 48/8, softcap 30), gemma3-1b's (4/1, D=256,
+                 S=2048, window 512 and global) and D=12 (padded), each in
                  bf16 and again in fp32; which kernel each took (bf16 at
                  D=64/128/256: the tensor cores), and SDPA as yardstick, with
                  the mask as a tensor and, where the mask is plain causal,
@@ -93,13 +97,31 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                  the four kernel ops refusing CUDA inputs that require grad, a
                  checkpoint of the card's state restoring on the CPU
                  bit-identical
+13b. serve_grok / serve_deepseek / serve_gemma3  the MoE, MLA and 5:1
+                 local-global families at full width, bf16, batch 4, through the
+                 serve loops: grok-1-314b (2 of 64 layers, 8 experts top 2,
+                 prompt 1024, 32 tokens, dense caches: its softcap keeps it off
+                 the tiered cache), deepseek-v3-671b (4 of 61 layers: 3 dense
+                 + 1 of 256 experts top 8, MLA latent caches, prompt 1024, 32
+                 tokens, no kernel: the reference has none for MLA or MoE),
+                 gemma3-1b (all 26 layers, prompt 2048, 64 tokens, kv window
+                 256, page 128 on its 4 global layers, ring pages on the 22
+                 local ones); launches per kernel, MoE assignments dropped /
+                 routed, peak bytes at init and serving; then profiled
+13c. serve_check_families  reduced grok, deepseek, gemma3 and command-r (D=12)
+                 in fp32: prefill + 4 decode steps on the card against the
+                 CPU, logits within 1e-4 relative and the same tokens a step
+13d. train_check_families  reduced deepseek (MoE aux + MTP) and grok in
+                 fp32: 4 train steps on the card against the CPU (step 1 within
+                 1e-5, all within 1e-4 relative)
 14. phase_seconds  each phase's wall seconds, and the total from the build on
 15. kernels      one entry per kernel: launches in the serve phases that run
                  it, max error, times, bound
 
 Each serve phase zeroes the kernels' launch counts just before it serves and
 reads them just after, and asserts them (``train`` too: it launches none), and that every bf16 flash launch
-took the tensor-core kernel (serve_sessions: before each of its two runs).  Every phase runs, at the configs' full depth.  The nvidia-smi line comes
+took the tensor-core kernel (serve_sessions: before each of its two runs).  Every phase runs, at the
+configs' full depth but train (2 of 30 layers), serve_grok and serve_deepseek (named above).  The nvidia-smi line comes
 first; the last line is the contract line ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it, as does a machine without CUDA or a
 directory without the repository's sources.
@@ -110,6 +132,7 @@ profile's tables are written there as well.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import math
@@ -172,7 +195,7 @@ def tiered_decode_phase(record: dict) -> None:
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.ops import load
-    from repro_torch.kernels.tiered_decode import (_DTYPES, blocks_per_sm, head_tile, plan_splits,
+    from repro_torch.kernels.tiered_decode import (_DTYPES, HEAD_DIMS, blocks_per_sm, head_tile, plan_splits,
                                                    tiered_decode_attention_fwd)
 
     B, W, qwen = 4, 256, (32, 8, 128)  # qwen3-8b's H, KV, D
@@ -190,6 +213,11 @@ def tiered_decode_phase(record: dict) -> None:
         ("cold_len_ragged", qwen, 150, 700, 20, 1024),
         ("long_history", qwen, 256, 7936, 255, 8192),
     ]
+    # gemma3-1b's global layers as serve_gemma3 gives them the kernel (prompt
+    # 2048 + 64 tokens, window 256, page 128: cold 1920 of 2176 rows), and the
+    # reduced command-r's D = 12 (zero-padded to 16; timed through the
+    # launcher, the padding copies included).
+    shapes += [("gemma3_serve", (4, 1, 256), 192, 1920, 63, 2176), ("d12_both_tiers", (8, 2, 12), 192, 896, 63, 1024)]
     # The groups and head dims of the other configs' GQA layers, and an odd
     # group (a padded head tile): starcoder2_3b, grok_1_314b, internvl2_1b,
     # gemma3_1b's global layers, recurrentgemma_9b's local attention.
@@ -223,10 +251,13 @@ def tiered_decode_phase(record: dict) -> None:
         stream = torch.cuda.current_stream().cuda_stream
         raw = [(s[0].data_ptr(), s[1].data_ptr(), s[2].data_ptr(), s[3].data_ptr(), s[4].data_ptr(),
                 o.data_ptr(), scratch.data_ptr(), B, H, KV, W, C, D, hot_len, cold_len, newest, n_split,
-                gt, _DTYPES[dt], stream)
+                gt, _DTYPES[dt], 1.0 / math.sqrt(D), stream)
                for s, o in zip(sets, outs)]
         it = iter(range(1 << 30))
-        ms = time_ms(lambda: lib.tiered_decode_launch(*raw[next(it) % copies]), iters=40)
+        if D in HEAD_DIMS:
+            ms = time_ms(lambda: lib.tiered_decode_launch(*raw[next(it) % copies]), iters=40)
+        else:
+            ms = time_ms(lambda: tiered_decode_attention_fwd(*sets[next(it) % copies], *args), iters=40)
         plain_ms = time_ms(lambda: ref.tiered_ring_attention_ref(*sets[next(it) % copies], *args))
 
         # Yardstick only: one SDPA call over the concatenated keys with the tiers' mask.
@@ -387,7 +418,7 @@ def tiered_rows_phase(record: dict) -> None:
                 sc = torch.empty(H * ns * (D + 2), dtype=torch.float32, device="cuda")
                 calls.append((s[0][i:i + 1].data_ptr(), s[1][i].data_ptr(), s[2][i].data_ptr(), s[3][i].data_ptr(),
                               s[4][i].data_ptr(), o[i:i + 1].data_ptr(), sc.data_ptr(), 1, H, KV, ROWS_W, c, D,
-                              hot_len, cold_len, newest, ns, gt, _DTYPES[dt], stream, sc))
+                              hot_len, cold_len, newest, ns, gt, _DTYPES[dt], 1.0 / math.sqrt(D), stream, sc))
             singles.append(calls)
         single_ms = time_ms(lambda: [lib.tiered_decode_launch(*c[:-1]) for c in singles[next(it) % copies]], iters=40)
         plain_ms = time_ms(lambda: ref.tiered_rows_attention_ref(*sets[next(it) % copies], lens), iters=10)
@@ -444,6 +475,10 @@ def flash_phase(record: dict) -> None:
         ("d64_causal", (4, 16, 4, 64), 1000, 1000, 0, 0.0),
         ("recurrentgemma_d256", (4, 16, 1, 256), 4096, 4096, 2048, 0.0),  # its local-attention prefill
         ("ragged_d256", (2, 16, 1, 256), 1500, 1500, 700, 0.0),
+        ("grok_softcap_30", (4, 48, 8, 128), 1024, 1024, 0, 30.0),  # grok-1's prefill: G = 6, softcap 30
+        ("gemma3_local_d256", (4, 4, 1, 256), 2048, 2048, 512, 0.0),  # gemma3-1b's prefill, local layers
+        ("gemma3_global_d256", (4, 4, 1, 256), 2048, 2048, 0, 0.0),  # and global ones
+        ("d12_causal", (4, 8, 2, 12), 512, 512, 0, 0.0),  # the reduced command-r's D, zero-padded to 16
     ]
     cases = [(name if dt == "bfloat16" else name + "_fp32", dt, *rest) for dt in DTYPES for name, *rest in shapes]
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1237,6 +1272,211 @@ def recurrent_serve_check_phase(record: dict, arch: str, B: int, prompt_len: int
     del params
 
 
+# ------------------------------------------------------- MoE, MLA and gemma3
+
+
+def family_serve_phase(record: dict, out_dir: Path | None, phase: str, arch: str, n_layers: int, prompt_len: int,
+                       tokens: int, window: int = 0, page: int | None = None) -> None:
+    """One arch of the MoE / MLA / 5:1 local-global families at full width
+    (depth ``n_layers``), bf16, attn_impl="flash", batch 4, random weights
+    from seed 0, through ``steps.tiered_serve_loop`` with ``window`` (the
+    full-attention layers' KV two-level, the local layers on ring pages)
+    or ``steps.dense_serve_loop`` without: prefill and decode rates,
+    launches per kernel (flash once a GQA layer; tiered decode once a
+    full-attention layer a token), the MoE assignments dropped over
+    capacity, peak device bytes at init and serving; then profiled."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config, make_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import init_params
+    from repro_torch.launch.steps import dense_serve_loop, make_tiered_caches, tiered_cache_stats, tiered_serve_loop
+    from repro_torch.nn import layers as L
+
+    torch.cuda.empty_cache()
+    B = 4
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, attn_impl="flash", scan_layers=False)
+    model = make_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(model, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree.leaves(params)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    largest_fp32_leaf = max(t.numel() * 4 for t in leaves)
+    init_peak = torch.cuda.max_memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab, (B, prompt_len), generator=gen, device="cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    L.reset_moe_counts()
+    if window:
+        out, prefill_s, decode_s, caches = tiered_serve_loop(model, cfg, params, prompts, tokens, window=window,
+                                                             page=page)
+    else:
+        out, prefill_s, decode_s, caches = dense_serve_loop(model, cfg, params, prompts, tokens)
+    launches, paths = ops.launches(), ops.flash_path_launches()
+    moe = L.moe_counts() if cfg.moe else None
+    st = tiered_cache_stats(caches)
+    specs = model.prefix
+    gqa = sum(spec.mixer == "gqa" for spec in specs)
+    full = sum(spec.mixer == "gqa" and spec.window == 0 for spec in specs)
+    dense_bytes = sum(t.numel() * t.element_size() for c in caches.values() if isinstance(c, dict)
+                      for t in c.values() if torch.is_tensor(t))
+    row = dict(arch=cfg.name, layers=n_layers, of_layers=get_config(arch).n_layers,
+               mixers=dict(sorted(collections.Counter(f"{sp.mixer}/{sp.ffn}" for sp in specs).items())),
+               batch=B, prompt_len=prompt_len, tokens=tokens, kv_window=window, kv_page=page, init_s=init_s,
+               param_bytes=param_bytes, init_peak_bytes=init_peak,
+               init_peak_over_params_and_largest_fp32_leaf=init_peak / (param_bytes + largest_fp32_leaf),
+               prefill_s=prefill_s, prefill_tok_per_s=B * prompt_len / prefill_s, decode_s=decode_s,
+               decode_tok_per_s=B * tokens / decode_s, launches=launches, flash_paths=paths, moe=moe,
+               dense_cache_device_bytes=dense_bytes, tiered_layers=st["layers"],
+               peak_device_bytes=torch.cuda.max_memory_allocated())
+    if cfg.moe:
+        row.update(moe_capacity_prefill=L.moe_capacity(B * prompt_len, cfg), moe_capacity_decode=L.moe_capacity(B, cfg))
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        row["latent_cache_bytes_per_token_layer"] = dense_bytes / (B * (prompt_len + tokens + 1) * n_layers)
+        if row["latent_cache_bytes_per_token_layer"] != (m.kv_lora_rank + m.qk_rope_head_dim) * 2:
+            raise AssertionError(f"{phase}: latent cache of {row['latent_cache_bytes_per_token_layer']} bytes a "
+                                 f"token a layer")
+    if window:
+        row.update(hot_fraction=st["hot_fraction"], pages_staged=st["pages_staged"],
+                   h2d_bytes_per_step=st["bytes_staged"] / tokens)
+    emit(phase, **row)
+    want = {"tiered_decode": full * tokens if window else 0, "flash_attention": gqa, "rglru": 0, "mlstm": 0}
+    if launches != want:
+        raise AssertionError(f"{phase}: launch counts {launches} != {want}")
+    if paths != {"tensor_core": gqa, "cuda_core": 0}:
+        raise AssertionError(f"{phase}: bf16 flash launches off the tensor-core path: {paths}")
+    if window and (st["layers"] != full or not st["hot_fraction"] < 1.0 or st["pages_staged"] <= 0):
+        raise AssertionError(f"{phase}: cold tier not exercised: {st}")
+    if moe is not None and moe["routed"] != B * (prompt_len + tokens) * cfg.moe.top_k * \
+            sum(spec.ffn == "moe" for spec in specs):
+        raise AssertionError(f"{phase}: {moe['routed']} MoE assignments routed")
+    if tuple(out.shape) != (B, tokens + 1) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+        raise AssertionError(f"{phase}: bad generated tokens: shape {tuple(out.shape)}")
+    del caches
+    fresh = (make_tiered_caches(model, cfg, B, prompt_len + 9, window, page, torch.bfloat16, "cuda") if window
+             else model.init_caches(B, prompt_len + 9, torch.bfloat16, "cuda"))
+    if cfg.moe:  # the prefill's share of the drops: the same prefill again, counted alone
+        L.reset_moe_counts()
+        model.prefill(params, prompts, fresh)
+        row["moe_prefill"] = L.moe_counts()
+        emit(f"{phase}_moe_prefill", **row["moe_prefill"])
+        fresh = model.init_caches(B, prompt_len + 9, torch.bfloat16, "cuda")
+    record[phase] = row
+    profile_serve(model, cfg, params, prompts, fresh, out_dir, phase)
+    del params, fresh
+    torch.cuda.empty_cache()
+
+
+FAMILY_CHECK_ARCHS = ("grok_1_314b", "deepseek_v3_671b", "gemma3_1b", "command_r_35b")
+
+
+def serve_check_families_phase(record: dict) -> None:
+    """The reduced grok, deepseek, gemma3 and command-r in fp32 (TF32 off),
+    attn_impl="flash": prefill and 4 decode steps on the card against the
+    same port on the CPU (the kernels there, their plain versions here),
+    through the tiered caches where the arch takes them (gemma3's global
+    layer, every command-r layer at D = 12) and the dense ones else; at each
+    step the logits' max relative error < 1e-4 and the same greedy tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_reduced, make_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_tiered_caches
+    from repro_torch.nn.module import init_with_axes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, prompt_len, steps, window, page = 2, 40, 4, 16, 8
+    rows = []
+    for arch in FAMILY_CHECK_ARCHS:
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32", attn_impl="flash", scan_layers=False)
+        model = make_model(cfg)
+        params = {"cpu": init_with_axes(model.init, 1, device="cpu")[0]}
+        params["cuda"] = tree.tree_map(lambda t: t.to("cuda"), params["cpu"])
+        tiered = cfg.attn_type == "gqa" and cfg.attn_logit_softcap == 0
+        prompts = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (B, prompt_len)))
+        logits, toks = {}, {}
+        for dev in ("cpu", "cuda"):
+            n = prompt_len + steps + 1
+            caches = (make_tiered_caches(model, cfg, B, n, window, page, torch.float32, dev) if tiered
+                      else model.init_caches(B, n, torch.float32, dev))
+            ops.reset_launches()
+            lg, caches = model.prefill(params[dev], prompts.to(dev), caches)
+            logits[dev], toks[dev] = [lg[:, -1].cpu()], [lg[:, -1].argmax(-1).cpu()]
+            for _ in range(steps):
+                lg, caches = model.decode_step(params[dev], toks[dev][-1][:, None].to(dev), caches)
+                logits[dev].append(lg[:, -1].cpu())
+                toks[dev].append(lg[:, -1].argmax(-1).cpu())
+            launches, paths = ops.launches(), ops.flash_path_launches()
+        rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(logits["cuda"], logits["cpu"])]
+        same = [bool(torch.equal(a, b)) for a, b in zip(toks["cuda"], toks["cpu"])]
+        gqa = sum(spec.mixer == "gqa" for spec in model.prefix)
+        full = sum(spec.mixer == "gqa" and spec.window == 0 for spec in model.prefix)
+        want = {"tiered_decode": full * steps if tiered else 0, "flash_attention": gqa, "rglru": 0, "mlstm": 0}
+        row = dict(arch=cfg.name, layers=cfg.n_layers, G=cfg.n_heads // cfg.n_kv_heads, D=cfg.resolved_head_dim,
+                   caches="tiered" if tiered else "dense", batch=B, prompt_len=prompt_len, steps=steps,
+                   logits_rel_err=rel, tokens_equal=same, launches=launches, flash_paths=paths,
+                   tokens=[t[0].item() for t in toks["cuda"]])
+        emit("serve_check_families", **row)
+        if max(rel) >= 1e-4 or not all(same) or launches != want:
+            raise AssertionError(f"serve_check_families {arch}: logits relative error {rel} (bar 1e-4), tokens "
+                                 f"equal {same}, launches {launches} (want {want})")
+        rows.append(row)
+    record["serve_check_families"] = rows
+
+
+def train_check_families_phase(record: dict) -> None:
+    """The training step of the MoE and MLA families on the card against
+    the same steps on the CPU: reduced deepseek (MoE aux + MTP) and reduced
+    grok in fp32, TF32 off, the same initial params (drawn on the CPU) and
+    4 batches of 4 x 64; step 1's loss within 1e-5 relative, every step's
+    within 1e-4; ce, moe_aux and mtp_ce printed; no kernel launched."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_reduced, make_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.optim.adamw import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for arch in ("deepseek_v3_671b", "grok_1_314b"):
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+        model = make_model(cfg)
+        opt = AdamW(learning_rate=1e-3)
+        states = {"cpu": init_state(model, cfg, opt, seed=0, device="cpu")[0]}
+        states["cuda"] = tree.tree_map(lambda t: t.to("cuda"), states["cpu"])
+        rng = np.random.default_rng(0)
+        batches = [torch.from_numpy(rng.integers(0, cfg.vocab, (4, 65))) for _ in range(4)]
+        step = make_train_step(model, cfg, opt)
+        metrics = {"cpu": [], "cuda": []}
+        ops.reset_launches()
+        for dev in ("cpu", "cuda"):
+            for toks in batches:
+                toks = toks.to(dev)
+                states[dev], m = step(states[dev], {"inputs": toks[:, :-1], "labels": toks[:, 1:]})
+                metrics[dev].append({k: float(m[k]) for k in ("loss", "ce", "moe_aux", "mtp_ce") if k in m})
+        rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(metrics["cuda"], metrics["cpu"])]
+        row = dict(arch=cfg.name, dtype="float32", cuda=metrics["cuda"], cpu=metrics["cpu"], losses_rel_apart=rel,
+                   launches=ops.launches())
+        emit("train_check_families", **row)
+        if rel[0] > 1e-5 or max(rel) > 1e-4 or any(ops.launches().values()):
+            raise AssertionError(f"train_check_families {arch}: card losses apart from the CPU's by {rel}, "
+                                 f"launches {ops.launches()}")
+        rows.append(row)
+    record["train_check_families"] = rows
+
+
 # ----------------------------------------------------------------------- train
 
 
@@ -1467,7 +1707,8 @@ def train_check_phase(record: dict) -> None:
 # ------------------------------------------------------------------------- main
 
 
-SERVE_PHASES = ("serve", "serve_store", "serve_sessions", "serve_recurrentgemma", "serve_xlstm")
+SERVE_PHASES = ("serve", "serve_store", "serve_sessions", "serve_recurrentgemma", "serve_xlstm", "serve_grok",
+                "serve_deepseek", "serve_gemma3")
 
 
 def kernels_line(record: dict) -> dict:
@@ -1576,8 +1817,16 @@ def main() -> int:
                                                                            prompt_len=2100, tokens=16)),
         ("serve_check_xlstm", lambda: recurrent_serve_check_phase(record, "xlstm_125m", B=2, prompt_len=16,
                                                                   tokens=8)),
+        ("serve_grok", lambda: family_serve_phase(record, out_dir, "serve_grok", "grok_1_314b", n_layers=2,
+                                                  prompt_len=1024, tokens=32)),
+        ("serve_deepseek", lambda: family_serve_phase(record, out_dir, "serve_deepseek", "deepseek_v3_671b",
+                                                      n_layers=4, prompt_len=1024, tokens=32)),
+        ("serve_gemma3", lambda: family_serve_phase(record, out_dir, "serve_gemma3", "gemma3_1b", n_layers=26,
+                                                    prompt_len=2048, tokens=64, window=256, page=128)),
+        ("serve_check_families", lambda: serve_check_families_phase(record)),
         ("train", lambda: train_phase(record, out_dir)),
         ("train_check", lambda: train_check_phase(record)),
+        ("train_check_families", lambda: train_check_families_phase(record)),
     ]
     seconds = {}
     for name, run in phases:

@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-Only the architectures whose layers the port has are registered; the
-others raise ``KeyError`` until their slice lands.
+Only the architectures whose layers the port has are registered (the
+JAX registry's decoder LMs); the encoder-decoder and VLM ones raise
+``KeyError`` until their slice lands.
 """
 
 from __future__ import annotations
@@ -10,7 +11,16 @@ import importlib
 
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeCell, applicable_shapes
 
-ARCH_IDS = ["starcoder2_3b", "qwen3_8b", "xlstm_125m", "recurrentgemma_9b"]
+ARCH_IDS = [
+    "deepseek_v3_671b",
+    "grok_1_314b",
+    "command_r_35b",
+    "starcoder2_3b",
+    "qwen3_8b",
+    "gemma3_1b",
+    "xlstm_125m",
+    "recurrentgemma_9b",
+]
 
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 

@@ -237,12 +237,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-                   int S, int Tk, int causal, int window, float softcap, cudaStream_t stream) {
+                   int S, int Tk, int causal, int window, float softcap, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const float scale = (float)(1.0 / sqrt((double)D));
   dim3 grid((S + kBQ - 1) / kBQ, B * H), block(kWarps * 32);
   flash_fwd_kernel<T, D><<<grid, block, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
                                                         (T*)out, H, KV, S, Tk, causal, window,
@@ -253,17 +252,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 // fp32 at every D; bf16 only at D = 16 and 32 (it takes the tensor cores above).
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* out, int B, int H,
-                     int KV, int S, int Tk, int causal, int window, float softcap,
+                     int KV, int S, int Tk, int causal, int window, float softcap, float scale,
                      cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, out, B, H, KV, S, Tk, causal, window, softcap, stream);
-    case 32: return launch<T, 32>(q, k, v, out, B, H, KV, S, Tk, causal, window, softcap, stream);
+    case 16: return launch<T, 16>(q, k, v, out, B, H, KV, S, Tk, causal, window, softcap, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, out, B, H, KV, S, Tk, causal, window, softcap, scale, stream);
   }
   if constexpr (std::is_same<T, float>::value) {
     switch (D) {
-      case 64: return launch<T, 64>(q, k, v, out, B, H, KV, S, Tk, causal, window, softcap, stream);
-      case 128: return launch<T, 128>(q, k, v, out, B, H, KV, S, Tk, causal, window, softcap, stream);
-      case 256: return launch<T, 256>(q, k, v, out, B, H, KV, S, Tk, causal, window, softcap, stream);
+      case 64: return launch<T, 64>(q, k, v, out, B, H, KV, S, Tk, causal, window, softcap, scale, stream);
+      case 128: return launch<T, 128>(q, k, v, out, B, H, KV, S, Tk, causal, window, softcap, scale, stream);
+      case 256: return launch<T, 256>(q, k, v, out, B, H, KV, S, Tk, causal, window, softcap, scale, stream);
     }
   }
   return cudaErrorInvalidValue;
@@ -726,7 +725,7 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int D, int row
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int H, int KV, int S,
-                   int Tk, int causal, int window, float softcap, cudaStream_t stream) {
+                   int Tk, int causal, int window, float softcap, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   const EncodeTiled enc = encode_tiled();
   if (!enc) return cudaErrorNotSupported;
@@ -741,7 +740,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
-  const float scale = (float)(1.0 / sqrt((double)D));
   dim3 grid(B * H, (S + kBM - 1) / kBM), block(kThreads);
   flash_wgmma_kernel<D><<<grid, block, C::SMEM, stream>>>(qm, km, vm, (const __nv_bfloat16*)v,
                                                           (__nv_bfloat16*)out, H, KV, S, Tk, causal,
@@ -754,32 +752,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 }  // namespace
 
 // The CUDA-core kernel.  dtype: 0 = float32 (D in 16..256), 1 = bfloat16
-// (D in 16, 32).  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a D or dtype it was not built for).
+// (D in 16, 32).  scale: the score scale, 1 / sqrt(head dim) (the caller's
+// head dim, which is below D where it zero-pads q, k and v to a built D).
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a D
+// or dtype it was not built for).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int B, int H, int KV, int S, int T, int D, int causal,
-                                      int window, float softcap, int dtype, void* stream) {
+                                      int window, float softcap, float scale, int dtype, void* stream) {
   if (KV <= 0 || H % KV || S <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return (int)launch_d<float>(D, q, k, v, out, B, H, KV, S, T, causal, window, softcap, s);
+  if (dtype == 0)
+    return (int)launch_d<float>(D, q, k, v, out, B, H, KV, S, T, causal, window, softcap, scale, s);
   if (dtype == 1)
-    return (int)launch_d<__nv_bfloat16>(D, q, k, v, out, B, H, KV, S, T, causal, window, softcap, s);
+    return (int)launch_d<__nv_bfloat16>(D, q, k, v, out, B, H, KV, S, T, causal, window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // The tensor-core kernel: bf16 operands, D in {64, 128, 256}, 16-byte
-// aligned.  Returns cudaGetLastError() after the launch
+// aligned; scale as above.  Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a D it was not built for or a tensor map the
 // driver refuses).
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* out,
                                             int B, int H, int KV, int S, int T, int D, int causal,
-                                            int window, float softcap, void* stream) {
+                                            int window, float softcap, float scale, void* stream) {
   if (KV <= 0 || H % KV || S <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
-    case 64: return (int)tc::launch<64>(q, k, v, out, B, H, KV, S, T, causal, window, softcap, s);
-    case 128: return (int)tc::launch<128>(q, k, v, out, B, H, KV, S, T, causal, window, softcap, s);
-    case 256: return (int)tc::launch<256>(q, k, v, out, B, H, KV, S, T, causal, window, softcap, s);
+    case 64: return (int)tc::launch<64>(q, k, v, out, B, H, KV, S, T, causal, window, softcap, scale, s);
+    case 128: return (int)tc::launch<128>(q, k, v, out, B, H, KV, S, T, causal, window, softcap, scale, s);
+    case 256: return (int)tc::launch<256>(q, k, v, out, B, H, KV, S, T, causal, window, softcap, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -406,8 +406,8 @@ template <typename T, int D, int GT>
 cudaError_t launch_tile(const void* q, const void* hk, const void* hv, const void* ck,
                         const void* cv, void* out, float* part_ml, float* part_acc, int B, int KV,
                         int G, int W, int C, int hot_len, int cold_len, int newest, int n_split,
-                        const RowTable* rows, cudaStream_t stream) {
-  const float scale_log2 = (float)(1.0 / sqrt((double)D)) * kLog2e;
+                        float scale, const RowTable* rows, cudaStream_t stream) {
+  const float scale_log2 = scale * kLog2e;
   constexpr size_t smem = partial_smem_bytes<D, GT>();
   const dim3 grid(B * KV, n_split, (G + GT - 1) / GT);
   cudaError_t err;
@@ -431,14 +431,14 @@ cudaError_t launch_tile(const void* q, const void* hk, const void* hv, const voi
 template <typename T, int D>
 cudaError_t launch_g(int G, int GT, const void* q, const void* hk, const void* hv, const void* ck,
                      const void* cv, void* out, float* part_ml, float* part_acc, int B, int KV,
-                     int W, int C, int hot_len, int cold_len, int newest, int n_split,
+                     int W, int C, int hot_len, int cold_len, int newest, int n_split, float scale,
                      const RowTable* rows, cudaStream_t stream) {
   cudaError_t err;
   switch (GT) {
 #define TD_TILE(GG)                                                                                \
   case GG:                                                                                         \
     err = launch_tile<T, D, GG>(q, hk, hv, ck, cv, out, part_ml, part_acc, B, KV, G, W, C, hot_len, \
-                                cold_len, newest, n_split, rows, stream);                          \
+                                cold_len, newest, n_split, scale, rows, stream);                   \
     break;
     TD_TILE(1)
     TD_TILE(2)
@@ -458,12 +458,12 @@ template <typename T>
 cudaError_t launch_d(int D, int G, int GT, const void* q, const void* hk, const void* hv,
                      const void* ck, const void* cv, void* out, float* ml, float* acc, int B,
                      int KV, int W, int C, int hot_len, int cold_len, int newest, int n_split,
-                     const RowTable* rows, cudaStream_t stream) {
+                     float scale, const RowTable* rows, cudaStream_t stream) {
   switch (D) {
 #define TD_D(DD)                                                                                 \
   case DD:                                                                                       \
     return launch_g<T, DD>(G, GT, q, hk, hv, ck, cv, out, ml, acc, B, KV, W, C, hot_len, cold_len, \
-                           newest, n_split, rows, stream);
+                           newest, n_split, scale, rows, stream);
     TD_D(16)
     TD_D(32)
     TD_D(64)
@@ -477,16 +477,16 @@ cudaError_t launch_d(int D, int G, int GT, const void* q, const void* hk, const 
 // Both entries: pass 1 over B rows, and pass 2 when n_split > 1.
 cudaError_t launch(int dtype, int D, int G, int GT, const void* q, const void* hk, const void* hv,
                    const void* ck, const void* cv, void* out, void* scratch, int B, int H, int KV, int W,
-                   int C, int hot_len, int cold_len, int newest, int n_split, const RowTable* rows,
-                   cudaStream_t s) {
+                   int C, int hot_len, int cold_len, int newest, int n_split, float scale,
+                   const RowTable* rows, cudaStream_t s) {
   float* ml = (float*)scratch;
   float* acc = ml ? ml + (size_t)B * H * n_split * 2 : nullptr;
   if (dtype == 0)
     return launch_d<float>(D, G, GT, q, hk, hv, ck, cv, out, ml, acc, B, KV, W, C, hot_len, cold_len, newest,
-                           n_split, rows, s);
+                           n_split, scale, rows, s);
   if (dtype == 1)
     return launch_d<__nv_bfloat16>(D, G, GT, q, hk, hv, ck, cv, out, ml, acc, B, KV, W, C, hot_len, cold_len,
-                                   newest, n_split, rows, s);
+                                   newest, n_split, scale, rows, s);
   return cudaErrorInvalidValue;
 }
 
@@ -495,18 +495,20 @@ cudaError_t launch(int dtype, int D, int G, int GT, const void* q, const void* h
 // dtype: 0 = float32, 1 = bfloat16.  head_tile: GT, the query heads a
 // pass-1 block takes (1, 2, 4, 6 or 8; the wrapper's head_tile).  scratch:
 // n_split > 1 needs B * H * n_split * (D + 2) floats (the partials); unused
-// at n_split = 1.  Launches pass 1 and, when n_split > 1, pass 2 on one
+// at n_split = 1.  scale: the score scale, 1 / sqrt(head dim) (the caller's
+// head dim, which is below D where it zero-pads q and the tiers to a built
+// D).  Launches pass 1 and, when n_split > 1, pass 2 on one
 // stream; returns cudaGetLastError() after them (cudaErrorInvalidValue for a
 // D, head tile, dtype or split count it was not built for).
 extern "C" int tiered_decode_launch(const void* q, const void* hot_k, const void* hot_v,
                                     const void* cold_k, const void* cold_v, void* out,
                                     void* scratch, int B, int H, int KV, int W, int C, int D,
                                     int hot_len, int cold_len, int newest, int n_split, int head_tile,
-                                    int dtype, void* stream) {
+                                    int dtype, float scale, void* stream) {
   if (KV <= 0 || H % KV || n_split < 1 || n_split > 65535 || (n_split > 1 && !scratch))
     return (int)cudaErrorInvalidValue;
   return (int)launch(dtype, D, H / KV, head_tile, q, hot_k, hot_v, cold_k, cold_v, out, scratch, B, H, KV, W,
-                     C, hot_len, cold_len, newest, n_split, nullptr, (cudaStream_t)stream);
+                     C, hot_len, cold_len, newest, n_split, scale, nullptr, (cudaStream_t)stream);
 }
 
 // The per-row entry, for N sessions at N different lengths: q (N, H, 1, D);
@@ -514,12 +516,13 @@ extern "C" int tiered_decode_launch(const void* q, const void* hot_k, const void
 // cold_k[i] / cold_v[i] (1, KV, caps[i], D), each contiguous where it lies;
 // lens[3 i], lens[3 i + 1], lens[3 i + 2] = row i's hot_len, cold_len and
 // ring slot of the newest token.  1 <= N <= 64; every row splits its own keys
-// into n_split ranges; scratch, head_tile, dtype and the return as above,
+// into n_split ranges; scratch, head_tile, dtype, scale and the return as above,
 // with B = N.
 extern "C" int tiered_decode_rows_launch(const void* q, const void* const* hot_k, const void* const* hot_v,
                                          const void* const* cold_k, const void* const* cold_v, const int* caps,
                                          const int* lens, void* out, void* scratch, int N, int H, int KV, int W,
-                                         int D, int n_split, int head_tile, int dtype, void* stream) {
+                                         int D, int n_split, int head_tile, int dtype, float scale,
+                                         void* stream) {
   if (N < 1 || N > kMaxRows || KV <= 0 || H % KV || n_split < 1 || n_split > 65535 ||
       (n_split > 1 && !scratch))
     return (int)cudaErrorInvalidValue;
@@ -535,5 +538,5 @@ extern "C" int tiered_decode_rows_launch(const void* q, const void* const* hot_k
     rows.newest[i] = lens[3 * i + 2];
   }
   return (int)launch(dtype, D, H / KV, head_tile, q, nullptr, nullptr, nullptr, nullptr, out, scratch, N, H, KV,
-                     W, 0, 0, 0, 0, n_split, &rows, (cudaStream_t)stream);
+                     W, 0, 0, 0, 0, n_split, scale, &rows, (cudaStream_t)stream);
 }

@@ -88,12 +88,12 @@ def build(names=SOURCES) -> dict[str, Path]:
 
 
 def _bind(lib: ctypes.CDLL, name: str) -> None:
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "tiered_decode":
-        fns = [(lib.tiered_decode_launch, [P] * 7 + [I] * 12 + [P]),
-               (lib.tiered_decode_rows_launch, [P] * 9 + [I] * 8 + [P])]
+        fns = [(lib.tiered_decode_launch, [P] * 7 + [I] * 12 + [F, P]),
+               (lib.tiered_decode_rows_launch, [P] * 9 + [I] * 8 + [F, P])]
     elif name == "flash_attention":
-        args = [P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float]
+        args = [P, P, P, P, I, I, I, I, I, I, I, I, F, F]
         fns = [(lib.flash_attention_launch, args + [I, P]), (lib.flash_attention_wgmma_launch, args + [P])]
     elif name == "rglru":
         fns = [(lib.rglru_scan_launch, [P, P, P, I, I, I, I, P])]
@@ -119,6 +119,23 @@ def load(name: str) -> ctypes.CDLL:
 def sm_count(device: torch.device) -> int:
     """The device's SM count, which the launch planners fill."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def built_head_dim(d: int, built: tuple[int, ...], kernel: str) -> int:
+    """The head dim a kernel built for the head dims ``built`` runs a head
+    dim ``d`` at: ``d`` itself where it is built, else the smallest built
+    one above it (the launcher zero-pads the operands' last dim to it and
+    passes the score scale 1/sqrt(d)); raises above the largest."""
+    for b in built:
+        if 1 <= d <= b:
+            return b
+    raise ValueError(f"{kernel} kernel built for D up to {built[-1]} (D in {built}, others zero-padded), got D={d}")
+
+
+def pad_head_dim(x: torch.Tensor, dk: int) -> torch.Tensor:
+    """``x`` zero-padded along its last dim to ``dk`` (``x`` itself when it
+    has that width already: a built head dim copies nothing)."""
+    return x if x.shape[-1] == dk else torch.nn.functional.pad(x, (0, dk - x.shape[-1]))
 
 
 def check(err: int, what: str) -> None:

@@ -13,7 +13,11 @@ arguments, so one built kernel serves every decode step.
 The kernel takes every group ``G = H / KV`` in ``GROUPS`` (1 to 16, which
 covers the GQA layers of every config of the repository) and every head
 dim in ``HEAD_DIMS`` (16 to 256), in fp32 and bf16; ``head_tile`` cuts the
-G heads into tiles of a built width.  Any other shape raises.
+G heads into tiles of a built width.  A head dim below 256 that is not built
+(the reduced configs' D = 12) runs at the next built one: the launcher
+zero-pads q and both tiers along D (a copy a call, at these small shapes
+only), passes the score scale 1/sqrt(D) of the caller's D and cuts the
+output back; the caches keep their own D.  Any other shape raises.
 
 ``head_tile``, ``plan_splits`` and ``split_ranges`` choose the tiles and
 ranges (plain Python, tested on the CPU); ``split_merge_plain`` is the
@@ -35,7 +39,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.ops import sm_count
+from repro_torch.kernels.ops import built_head_dim, pad_head_dim, sm_count
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -131,10 +135,12 @@ def split_merge_rows_plain(q, hot_k, hot_v, cold_k, cold_v, lens, n_split: int) 
                                         n_split) for i in range(q.shape[0])])
 
 
-def _check_group(h: int, kv: int, d: int) -> None:
-    if d not in HEAD_DIMS or kv <= 0 or h % kv or h // kv not in GROUPS:
-        raise ValueError(f"tiered decode kernel built for D in {HEAD_DIMS}, H/KV in 1..{GROUPS[-1]}; "
-                         f"got D={d}, H={h}, KV={kv}")
+def check_shape(h: int, kv: int, d: int) -> int:
+    """Raise unless the kernel takes H query heads over KV kv heads of head
+    dim D; return the built head dim it runs D at."""
+    if kv <= 0 or h % kv or h // kv not in GROUPS:
+        raise ValueError(f"tiered decode kernel built for H/KV in 1..{GROUPS[-1]}; got H={h}, KV={kv}")
+    return built_head_dim(d, HEAD_DIMS, "tiered decode")
 
 
 def _check_operands(tensors, q: torch.Tensor) -> None:
@@ -166,7 +172,7 @@ def rows_plan(q: torch.Tensor, hot_k, hot_v, cold_k, cold_v, lens) -> tuple[list
     if not len(hot_k) == len(hot_v) == len(cold_k) == len(cold_v) == len(lens) == n:
         raise ValueError(f"{n} query rows need {n} rings, staging buffers and length triples")
     kv, w = hot_k[0].shape[1], hot_k[0].shape[2]
-    _check_group(h, kv, d)
+    check_shape(h, kv, d)
     lens = [tuple(int(x) for x in row) for row in lens]
     for i, (hk, hv, ck, cv, (hot_len, cold_len, _)) in enumerate(zip(hot_k, hot_v, cold_k, cold_v, lens)):
         if hk.shape != (1, kv, w, d) or hv.shape != hk.shape or ck.ndim != 4 or ck.shape[:2] != (1, kv) \
@@ -182,17 +188,20 @@ def rows_plan(q: torch.Tensor, hot_k, hot_v, cold_k, cold_v, lens) -> tuple[list
     return lens, plan_splits(n_keys, n * kv * tiles, sm_count(q.device), blocks_per_sm(h // kv))
 
 
-def rows_launch_args(q, hot_k, hot_v, cold_k, cold_v, lens, n_split: int, out, scratch) -> tuple:
+def rows_launch_args(q, hot_k, hot_v, cold_k, cold_v, lens, n_split: int, out, scratch,
+                     scale: float | None = None) -> tuple:
     """The arguments of one ``tiered_decode_rows_launch`` C call, on checked
-    operands (``rows_plan``): the rows' base pointers, capacities and
-    lengths as C arrays, and the current stream."""
+    operands of a built head dim (``rows_plan``): the rows' base pointers,
+    capacities and lengths as C arrays, the score scale (1/sqrt(D) unless
+    given: the unpadded D's) and the current stream."""
     n, h, _, d = q.shape
     _, kv, w, _ = hot_k[0].shape
     ptrs = lambda ts: (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
     return (q.data_ptr(), ptrs(hot_k), ptrs(hot_v), ptrs(cold_k), ptrs(cold_v),
             (ctypes.c_int * n)(*(c.shape[2] for c in cold_k)), (ctypes.c_int * (3 * n))(*(x for r in lens for x in r)),
             out.data_ptr(), None if scratch is None else scratch.data_ptr(), n, h, kv, w, d, int(n_split),
-            head_tile(h // kv)[0], _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+            head_tile(h // kv)[0], _DTYPES[q.dtype], 1.0 / math.sqrt(d) if scale is None else scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def tiered_decode_rows_fwd(q: torch.Tensor, hot_k, hot_v, cold_k, cold_v, lens,
@@ -205,12 +214,16 @@ def tiered_decode_rows_fwd(q: torch.Tensor, hot_k, hot_v, cold_k, cold_v, lens,
     lens, planned = rows_plan(q, hot_k, hot_v, cold_k, cold_v, lens)
     n_split = planned if n_split is None else n_split
     n, h, _, d = q.shape
+    dk = check_shape(h, hot_k[0].shape[1], d)
+    q = pad_head_dim(q, dk)
+    hot_k, hot_v, cold_k, cold_v = ([pad_head_dim(t, dk) for t in ts] for ts in (hot_k, hot_v, cold_k, cold_v))
     out = torch.empty_like(q)
-    scratch = torch.empty(n * h * n_split * (d + 2), dtype=torch.float32, device=q.device) if n_split > 1 else None
+    scratch = torch.empty(n * h * n_split * (dk + 2), dtype=torch.float32, device=q.device) if n_split > 1 else None
     lib = load("tiered_decode")
     check(lib.tiered_decode_rows_launch(*rows_launch_args(q, hot_k, hot_v, cold_k, cold_v, lens, n_split, out,
-                                                          scratch)), "tiered_decode_rows_attention")
-    return out
+                                                          scratch, 1.0 / math.sqrt(d))),
+          "tiered_decode_rows_attention")
+    return out if dk == d else out[..., :d].contiguous()
 
 
 def tiered_decode_attention_fwd(
@@ -234,7 +247,7 @@ def tiered_decode_attention_fwd(
     tensors = (q, hot_k, hot_v, cold_k, cold_v)
     if one != 1:
         raise ValueError(f"decode takes one query row, got {one}")
-    _check_group(h, kv, d)
+    dk = check_shape(h, kv, d)
     if hot_v.shape != hot_k.shape or cold_v.shape != cold_k.shape or cold_k.shape[:2] != (b, kv) \
             or hot_k.shape[0] != b or cold_k.shape[3] != d or hot_k.shape[3] != d:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} hot {tuple(hot_k.shape)} cold {tuple(cold_k.shape)}")
@@ -244,14 +257,15 @@ def tiered_decode_attention_fwd(
     gt, tiles = head_tile(h // kv)
     if n_split is None:
         n_split = plan_splits(hot_len + cold_len, b * kv * tiles, sm_count(q.device), blocks_per_sm(h // kv))
+    q, hot_k, hot_v, cold_k, cold_v = (pad_head_dim(t, dk) for t in tensors)
     out = torch.empty_like(q)
-    scratch = torch.empty(b * h * n_split * (d + 2), dtype=torch.float32, device=q.device) if n_split > 1 else None
+    scratch = torch.empty(b * h * n_split * (dk + 2), dtype=torch.float32, device=q.device) if n_split > 1 else None
     lib = load("tiered_decode")
     err = lib.tiered_decode_launch(
         q.data_ptr(), hot_k.data_ptr(), hot_v.data_ptr(), cold_k.data_ptr(), cold_v.data_ptr(),
-        out.data_ptr(), None if scratch is None else scratch.data_ptr(), b, h, kv, w, c, d,
-        int(hot_len), int(cold_len), int(ring_newest), int(n_split), gt, _DTYPES[q.dtype],
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(), b, h, kv, w, c, dk,
+        int(hot_len), int(cold_len), int(ring_newest), int(n_split), gt, _DTYPES[q.dtype], 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check(err, "tiered_decode_attention")
-    return out
+    return out if dk == d else out[..., :d].contiguous()

@@ -7,6 +7,18 @@ unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
         --batch 4 --prompt-len 4096 --tokens 64
 
+Every decoder LM of the registry serves: the MoE archs (grok-1-314b through
+dense caches, as its logit softcap keeps it off the tiered cache;
+deepseek-v3-671b through its MLA latent caches) print the (token, expert)
+assignments their capacity dropped; gemma3-1b's local layers keep their
+ring pages under ``--kv-window`` while its global layers go tiered.
+``--layers N`` serves the first N layers, a depth one card holds:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b --layers 2 \
+        --batch 4 --prompt-len 1024 --tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
+        --batch 4 --prompt-len 2048 --tokens 64 --kv-window 256 --kv-page 128
+
 ``--kv-window W`` routes every full-attention layer's KV through the
 two-level ``TieredKVCache`` (device hot ring of W tokens + paged pinned host
 cold tier); ``--kv-page`` sets the cold staging page.  ``--store-root DIR``
@@ -52,20 +64,23 @@ import torch
 
 from repro_torch.configs import get_config, get_reduced, make_model
 from repro_torch.launch.steps import dense_serve_loop, tiered_cache_stats, tiered_serve_loop
-from repro_torch.nn.layers import cdtype
-from repro_torch.nn.module import cast_matrices, init_with_axes
+from repro_torch.nn.layers import cdtype, moe_counts, reset_moe_counts
+from repro_torch.nn.module import init_with_axes, matrix_cast
 from repro_torch.nn.recurrent import FP32_MATRICES
 
 
 def init_params(model, seed: int, device):
-    """Random weights from ``seed`` on ``device``: fp32 masters, then the
-    matrices cast once to the compute dtype.  What the layers read in fp32
-    stays fp32: the LM head, the embedding table when the head is tied to it
-    (a bf16 table would be copied to fp32 at every step), and the recurrent
-    blocks' fp32 matrices (``nn.recurrent.FP32_MATRICES``)."""
-    params, _ = init_with_axes(model.init, seed, device=device, dtype=torch.float32)
+    """Random weights from ``seed`` on ``device``: fp32 draws, each matrix
+    cast to the compute dtype as soon as it is drawn (``nn.module.matrix_cast``:
+    the values of casting the fp32 tree afterwards, at a peak of the cast
+    model plus one fp32 leaf).  What the layers read in fp32 stays fp32: the
+    LM head, the embedding table when the head is tied to it (a bf16 table
+    would be copied to fp32 at every step), and the recurrent blocks' fp32
+    matrices (``nn.recurrent.FP32_MATRICES``)."""
     keep = ("head", *FP32_MATRICES) + (("embed",) if model.cfg.tie_embeddings else ())
-    return cast_matrices(params, cdtype(model.cfg), keep)
+    params, _ = init_with_axes(model.init, seed, device=device, dtype=torch.float32,
+                               cast=matrix_cast(cdtype(model.cfg), keep))
+    return params
 
 
 def _prompts(cfg, batch: int, prompt_len: int, seed: int, device) -> torch.Tensor:
@@ -131,6 +146,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve the first N layers only (0 = all): a depth that fits one card")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--tokens", type=int, default=32)
@@ -158,6 +175,9 @@ def main() -> None:
     args = ap.parse_args()
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    reset_moe_counts()
     if args.sessions > 0 and args.kv_window <= 0:
         raise SystemExit("--sessions requires --kv-window")
     if args.kv_window > 0:
@@ -214,6 +234,9 @@ def main() -> None:
         if args.store_root:
             print(f"store {args.store_root}: {st['pages_persisted']} pages persisted "
                   f"({st['bytes_persisted']:,} bytes)")
+    if cfg.moe is not None:
+        moe = moe_counts()
+        print(f"moe: {moe['dropped']} of {moe['routed']} (token, expert) assignments dropped over capacity")
     print(f"generated (row 0): {gen[0].tolist()[:24]}")
 
 

@@ -1,7 +1,7 @@
 """Step builders of the port — ``repro/launch/steps.py`` but its input
-specs and sharding (no mesh here): the loss and train step of the dense
-training plane, greedy prefill/decode steps, and two-level (tiered KV)
-serving."""
+specs and sharding (no mesh here): the loss (with the MoE aux and MTP
+terms) and train step of the training plane, greedy prefill/decode steps,
+and two-level (tiered KV) serving."""
 
 from __future__ import annotations
 
@@ -12,12 +12,15 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import make_layer_cache
+from repro_torch.nn import layers as L
 from repro_torch.optim.adamw import AdamW, apply_updates
 from repro_torch.serving import TieredKVCache
 from repro_torch.tree import tree_map
 
 PyTree = Any
 
+MOE_AUX_WEIGHT = 0.01
+MTP_WEIGHT = 0.3
 Z_LOSS_WEIGHT = 1e-4
 IGNORE_INDEX = -100
 
@@ -46,21 +49,37 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Ten
 
 
 def make_loss_fn(model, cfg: ArchConfig) -> Callable:
-    """The dense branch of the reference's loss: CE + z-loss over
-    ``model.train_logits``.  The other branches (MoE aux, MTP, encoder-decoder,
-    VLM) and recurrent training wait for their slices (``ROADMAP.md``)."""
+    """The reference's loss for decoder LMs: CE + z-loss over the logits,
+    plus ``MOE_AUX_WEIGHT`` x the MoE layers' load-balance loss and, with
+    the MTP head, ``MTP_WEIGHT`` x its loss at predicting t+2 (from every
+    hidden state but the last and the inputs shifted by one).  The
+    encoder-decoder and VLM branches and recurrent training wait for their
+    slices (``ROADMAP.md``)."""
     missing = [name for name, on in (
-        ("moe", cfg.moe is not None), ("mtp", cfg.mtp), ("encdec", cfg.encdec is not None),
-        ("vlm", cfg.vlm is not None), ("recurrent", cfg.recurrent is not None),
+        ("encdec", cfg.encdec is not None), ("vlm", cfg.vlm is not None), ("recurrent", cfg.recurrent is not None),
     ) if on]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: training with {', '.join(missing)} layers is not ported yet (see ROADMAP.md)")
 
     def loss_fn(params: PyTree, batch: dict) -> tuple[torch.Tensor, dict]:
-        logits, _ = model.train_logits(params, batch["inputs"])
+        if cfg.mtp:
+            hidden, aux = model.train_hidden(params, batch["inputs"])
+            x = L.norm_apply(params["final_norm"], hidden, cfg)
+            logits = L.logits_apply(params["embed"], params.get("head"), x, cfg)
+        else:
+            logits, aux = model.train_logits(params, batch["inputs"])
         total, ce = cross_entropy(logits, batch["labels"])
-        return total, {"ce": ce.detach()}
+        metrics = {"ce": ce.detach()}
+        if cfg.moe is not None:
+            total = total + MOE_AUX_WEIGHT * aux
+            metrics["moe_aux"] = aux.detach()
+        if cfg.mtp:
+            mtp_logits = model.mtp_logits(params, batch["inputs"][:, 1:], hidden[:, :-1])
+            mtp_total, mtp_ce = cross_entropy(mtp_logits, batch["labels"][:, 1:])
+            total = total + MTP_WEIGHT * mtp_total
+            metrics["mtp_ce"] = mtp_ce.detach()
+        return total, metrics
 
     return loss_fn
 
@@ -146,8 +165,8 @@ def make_tiered_caches(
 ) -> dict:
     """Caches for the two-level serving backend: every full-attention GQA
     layer gets a ``TieredKVCache`` (device hot ring + paged host cold tier);
-    windowed and recurrent layers keep their O(window) and O(1) caches
-    (``make_layer_cache``).  ``impl`` is the
+    windowed, MLA and recurrent layers keep their O(window) ring pages,
+    latent caches and O(1) states (``make_layer_cache``).  ``impl`` is the
     tiered caches' attend path (``"kernel"`` or ``"plain"``).
 
     ``store`` (a :class:`~repro_torch.core.store.TwoLevelStore`) adds the

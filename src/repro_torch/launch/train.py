@@ -1,6 +1,6 @@
 """Resilient training driver of the port: the paper's storage system under a
 real loop, on the card unless ``--device cpu`` is given — the port of
-``repro/launch/train.py`` (dense configs; one device).
+``repro/launch/train.py`` (the decoder LMs but the recurrent ones; one device).
 
 Wiring: the token pipeline reads its shards through the ``TwoLevelStore``
 (hot shards in the memory tier, all shards durable on the PFS tier) and its

@@ -1,7 +1,9 @@
 """Decoder-only LM of the port — ``repro/models/lm.py`` for the dense GQA
-family (qwen3-8b, starcoder2-3b) and the recurrent ones: the RG-LRU hybrid with local
-attention (recurrentgemma-9b) and xLSTM (xlstm-125m).  MoE, MLA, VLM
-patches and the MTP head wait for their slices and are refused at
+family (qwen3-8b, starcoder2-3b, command-r-35b, gemma3-1b's 5:1 local and
+global layers), MoE (grok-1-314b), MLA + MoE with DeepSeek's multi-token
+prediction head (deepseek-v3-671b) and the recurrent ones: the RG-LRU hybrid
+with local attention (recurrentgemma-9b) and xLSTM (xlstm-125m).  VLM
+patches and the encoder-decoder wait for their slice and are refused at
 construction.
 
 The stack is always unrolled (``prefix_0 .. prefix_{L-1}``): PyTorch runs
@@ -14,6 +16,7 @@ Three entry points (pure functions of params and caches; only the first is
 differentiable):
 
     train_logits(params, tokens)        -> (logits, aux)
+    train_hidden(params, tokens)        -> (hidden, aux)   [+ mtp_logits]
     prefill(params, tokens, caches)     -> (logits, new_caches)
     decode_step(params, token, caches)  -> (logits, new_caches)
 """
@@ -41,8 +44,7 @@ class LayerSpec:
 
 
 def layer_specs(cfg: ArchConfig) -> list[LayerSpec]:
-    """Expand a config into its per-layer specs (the MLA and MoE branches of
-    the JAX version come with their slice)."""
+    """Expand a config into its per-layer specs."""
     specs: list[LayerSpec] = []
     for i in range(cfg.n_layers):
         if cfg.recurrent is not None and cfg.recurrent.kind == "rglru":
@@ -55,11 +57,15 @@ def layer_specs(cfg: ArchConfig) -> list[LayerSpec]:
             every = cfg.recurrent.slstm_every
             kind = "slstm" if i % every == every - 1 else "mlstm"
             specs.append(LayerSpec(kind, ffn="none"))
+        elif cfg.attn_type == "mla":
+            ffn = "moe" if (cfg.moe and i >= cfg.moe.first_k_dense) else "mlp"
+            specs.append(LayerSpec("mla", ffn=ffn))
         else:
             window = cfg.window
             if cfg.global_every > 0 and i % cfg.global_every == cfg.global_every - 1:
                 window = 0  # periodic global layer (gemma3 5:1)
-            specs.append(LayerSpec("gqa", window=window))
+            ffn = "moe" if cfg.moe is not None else "mlp"
+            specs.append(LayerSpec("gqa", window=window, ffn=ffn))
     return specs
 
 
@@ -90,7 +96,8 @@ def stack_plan(cfg: ArchConfig) -> tuple[list[LayerSpec], list[LayerSpec], int, 
     return prefix, period, n_periods, suffix
 
 
-_MIXER_INIT = {"gqa": L.attention_init, "rglru": R.rglru_init, "mlstm": R.mlstm_init, "slstm": R.slstm_init}
+_MIXER_INIT = {"gqa": L.attention_init, "mla": L.mla_init, "rglru": R.rglru_init, "mlstm": R.mlstm_init,
+               "slstm": R.slstm_init}
 _RECURRENT_APPLY = {"rglru": R.rglru_block_apply, "mlstm": R.mlstm_block_apply, "slstm": R.slstm_block_apply}
 
 
@@ -101,7 +108,7 @@ def init_layer(scope: Scope, spec: LayerSpec, cfg: ArchConfig) -> None:
         L.norm_init(scope, "post_mixer_norm", cfg.d_model, cfg)
     if spec.ffn != "none":
         L.norm_init(scope, "pre_ffn_norm", cfg.d_model, cfg)
-        L.mlp_init(scope, "ffn", cfg)
+        (L.moe_init if spec.ffn == "moe" else L.mlp_init)(scope, "ffn", cfg)
         if cfg.post_norms:
             L.norm_init(scope, "post_ffn_norm", cfg.d_model, cfg)
 
@@ -111,6 +118,8 @@ def make_layer_cache(spec: LayerSpec, cfg: ArchConfig, batch: int, max_seq: int,
         # Sliding-window layers only ever need `window` keys; cap the page.
         size = min(max_seq, spec.window) if spec.window > 0 else max_seq
         return L.make_cache(cfg, batch, size, dtype, device)
+    if spec.mixer == "mla":
+        return L.mla_make_cache(cfg, batch, max_seq, dtype, device)
     if spec.mixer == "rglru":
         return R.rglru_make_state(cfg, batch, dtype, device)
     if spec.mixer == "mlstm":
@@ -121,11 +130,14 @@ def make_layer_cache(spec: LayerSpec, cfg: ArchConfig, batch: int, max_seq: int,
 
 
 def apply_layer(p: Params, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig,
-                cache: Any = None, mode: str = "train") -> tuple[torch.Tensor, Any]:
-    """Residual layer body. Returns (x, new_cache)."""
+                cache: Any = None, mode: str = "train") -> tuple[torch.Tensor, Any, torch.Tensor]:
+    """Residual layer body. Returns (x, new_cache, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.norm_apply(p["pre_norm"], x, cfg)
     if spec.mixer == "gqa":
         mix, new_cache = L.attention_apply(p["mixer"], h, cfg, window=spec.window, cache=cache, mode=mode)
+    elif spec.mixer == "mla":
+        mix, new_cache = L.mla_apply(p["mixer"], h, cfg, cache=cache, mode=mode)
     else:
         mix, new_cache = _RECURRENT_APPLY[spec.mixer](p["mixer"], h, cfg, state=cache)
     if cfg.post_norms:
@@ -133,19 +145,19 @@ def apply_layer(p: Params, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig,
     x = x + mix
     if spec.ffn != "none":
         h2 = L.norm_apply(p["pre_ffn_norm"], x, cfg)
-        f = L.mlp_apply(p["ffn"], h2, cfg)
+        if spec.ffn == "moe":
+            f, aux = L.moe_apply(p["ffn"], h2, cfg)
+        else:
+            f = L.mlp_apply(p["ffn"], h2, cfg)
         if cfg.post_norms:
             f = L.norm_apply(p["post_ffn_norm"], f, cfg)
         x = x + f
-    return x, new_cache
+    return x, new_cache, aux
 
 
 class LM:
     def __init__(self, cfg: ArchConfig):
-        missing = [name for name, on in (
-            ("moe", cfg.moe is not None), ("mla", cfg.attn_type == "mla"), ("vlm", cfg.vlm is not None),
-            ("encdec", cfg.encdec is not None), ("mtp", cfg.mtp),
-        ) if on]
+        missing = [name for name, on in (("vlm", cfg.vlm is not None), ("encdec", cfg.encdec is not None)) if on]
         if missing:
             raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported yet")
         self.cfg = cfg
@@ -160,6 +172,11 @@ class LM:
         for i, spec in enumerate(self.prefix):
             init_layer(scope.child(f"prefix_{i}"), spec, cfg)
         L.norm_init(scope, "final_norm", cfg.d_model, cfg)
+        if cfg.mtp:
+            m = scope.child("mtp")
+            L.norm_init(m, "in_norm", cfg.d_model, cfg)
+            L.linear_init(m, "proj", 2 * cfg.d_model, cfg.d_model, (None, "embed"))
+            init_layer(m.child("layer"), LayerSpec(cfg.attn_type, ffn="mlp"), cfg)
 
     def init_caches(self, batch: int, max_seq: int, dtype=torch.bfloat16, device="cuda") -> dict:
         return {
@@ -168,13 +185,16 @@ class LM:
         }
 
     def _run_stack(self, params: Params, x: torch.Tensor, caches: dict | None, mode: str):
+        """Every layer in turn. Returns (x, new_caches, the layers' aux losses summed)."""
         new_caches: dict[str, Any] = {}
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, spec in enumerate(self.prefix):
             key = f"prefix_{i}"
-            x, nc = apply_layer(params[key], x, spec, self.cfg, caches.get(key) if caches else None, mode)
+            x, nc, aux = apply_layer(params[key], x, spec, self.cfg, caches.get(key) if caches else None, mode)
+            aux_total = aux_total + aux
             if caches is not None:
                 new_caches[key] = nc
-        return x, (new_caches if caches is not None else None)
+        return x, (new_caches if caches is not None else None), aux_total
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x = L.norm_apply(params["final_norm"], x, self.cfg)
@@ -185,20 +205,36 @@ class LM:
 
         Differentiable (the training forward, ``launch.steps.make_loss_fn``):
         autograd tracks it when the params require grad."""
+        x, aux = self.train_hidden(params, tokens)
+        return self._logits(params, x), aux
+
+    def train_hidden(self, params: Params, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Hidden states before the final norm (for the MTP head) + aux."""
         x = L.embedding_apply(params["embed"], tokens, self.cfg)
-        x, _ = self._run_stack(params, x, None, "train")
-        return self._logits(params, x), torch.zeros((), device=x.device)
+        x, _, aux = self._run_stack(params, x, None, "train")
+        return x, aux
+
+    def mtp_logits(self, params: Params, tokens: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
+        """DeepSeek MTP head: predict t+2 from [h_t ; emb(t+1)] (depth 1); the
+        caller shifts ``tokens`` and ``hidden``."""
+        cfg = self.cfg
+        m = params["mtp"]
+        emb_next = L.embedding_apply(params["embed"], tokens, cfg)
+        h = L.norm_apply(m["in_norm"], hidden, cfg)
+        z = L.linear_apply(m["proj"], torch.cat([h, emb_next], dim=-1))
+        z, _, _ = apply_layer(m["layer"], z, LayerSpec(cfg.attn_type, ffn="mlp"), cfg, None, "train")
+        return self._logits(params, z)
 
     @torch.no_grad()
     def prefill(self, params: Params, tokens: torch.Tensor, caches: dict) -> tuple[torch.Tensor, dict]:
         """Process the prompt; fill caches; return last-position logits."""
         x = L.embedding_apply(params["embed"], tokens, self.cfg)
-        x, new_caches = self._run_stack(params, x, caches, "prefill")
+        x, new_caches, _ = self._run_stack(params, x, caches, "prefill")
         return self._logits(params, x[:, -1:, :]), new_caches
 
     @torch.no_grad()
     def decode_step(self, params: Params, token: torch.Tensor, caches: dict) -> tuple[torch.Tensor, dict]:
         """One autoregressive step against pre-allocated caches."""
         x = L.embedding_apply(params["embed"], token, self.cfg)
-        x, new_caches = self._run_stack(params, x, caches, "decode")
+        x, new_caches, _ = self._run_stack(params, x, caches, "decode")
         return self._logits(params, x), new_caches

@@ -1,9 +1,11 @@
-"""Dense layer library of the port: norms, projections, RoPE, GQA attention
-(sliding window, qk-norm, dict or two-level KV cache) and MLPs — the port of
-``repro/nn/layers.py`` up to its MLA and MoE sections, which wait for their
-slice.  Every apply function is differentiable on the plain path; training
-attends through ``_attend`` (``attn_impl="xla"``, as the reference trains),
-since the flash kernel has no backward.
+"""Layer library of the port: norms, projections, RoPE, GQA attention
+(sliding window, qk-norm, dict or two-level KV cache), DeepSeek's MLA with
+its latent cache, MLPs and the sort-dispatched MoE — the port of
+``repro/nn/layers.py`` but its ``cross_kv`` branch.  Every apply function is
+differentiable on the plain path; training attends through ``_attend``
+(``attn_impl="xla"``, as the reference trains), since the flash kernel has
+no backward.  MLA and MoE reach no kernel: the reference has no Pallas
+kernel for them.
 
 Conventions (as in the JAX package):
 * compute runs in ``cfg.dtype``; softmax, normalisers and logits in fp32;
@@ -20,12 +22,12 @@ Conventions (as in the JAX package):
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, MLAConfig
 from repro_torch.kernels import ops
 from repro_torch.nn.module import Scope
 
@@ -382,3 +384,252 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if "b_down" in p:
         y = y + p["b_down"].to(dt)
     return y
+
+
+# ---------------------------------------------------------------------------
+# MLA — DeepSeek-V3 multi-head latent attention
+# ---------------------------------------------------------------------------
+
+
+def mla_init(scope: Scope, name: str, cfg: ArchConfig) -> None:
+    m = cfg.mla or MLAConfig()
+    c = scope.child(name)
+    d, h = cfg.d_model, cfg.n_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    c.param("wq_a", (d, m.q_lora_rank), ("embed", "q_lora"), init="fan_in")
+    c.param("q_a_norm", (m.q_lora_rank,), ("q_lora",), init="ones")
+    c.param("wq_b", (m.q_lora_rank, h, qk_head), ("q_lora", "heads", "head_dim"), init="fan_in")
+    c.param("wkv_a", (d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", "kv_lora"), init="fan_in")
+    c.param("kv_a_norm", (m.kv_lora_rank,), ("kv_lora",), init="ones")
+    c.param(
+        "wkv_b",
+        (m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim),
+        ("kv_lora", "heads", "head_dim"),
+        init="fan_in",
+    )
+    c.param("wo", (h, m.v_head_dim, d), ("heads", "head_dim", "embed"), init="fan_in")
+
+
+def mla_make_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype, device="cuda") -> dict:
+    """The latent cache: ``c_kv`` (B, T, kv_lora_rank) and the roped
+    ``k_pe`` (B, T, rope dim) a token, updated in place on decode."""
+    m = cfg.mla or MLAConfig()
+    return {
+        "c_kv": torch.zeros((batch, max_seq, m.kv_lora_rank), dtype=dtype, device=device),
+        "k_pe": torch.zeros((batch, max_seq, m.qk_rope_head_dim), dtype=dtype, device=device),
+        "index": 0,
+    }
+
+
+def _rms_vec(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(dt)
+
+
+def _mla_attend(q_nope, q_pe, k_nope, k_pe, v, mask, m: MLAConfig) -> torch.Tensor:
+    """softmax(mask((q_nope . k_nope + q_pe . k_pe) / sqrt(nope + rope))) v,
+    the rope key shared by every head; fp32 scores, probabilities in the
+    compute dtype."""
+    scores = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+              + torch.einsum("bshk,btk->bhst", q_pe, k_pe)).float()
+    scores = scores / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    scores = torch.where(mask[:, None, :, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q_nope.dtype)
+    return torch.einsum("bhst,bthk->bshk", probs, v)
+
+
+def mla_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, cache: dict | None = None,
+              mode: str = "train") -> tuple[torch.Tensor, dict | None]:
+    """MLA: queries, keys and values rebuilt from low-rank latents.
+
+    The decode cache holds only (c_kv, k_pe): kv_lora_rank + rope dim values
+    a token (DeepSeek-V3's KV-cache compression); decode rebuilds the keys
+    and values of the whole cache from it each step, as the reference does.
+    RoPE turns only the rope part of q and k."""
+    m = cfg.mla or MLAConfig()
+    b, s, d = x.shape
+    dt = x.dtype
+    dev = x.device
+
+    cq = _rms_vec(x @ p["wq_a"].to(dt), p["q_a_norm"], cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"].to(dt))
+    q_nope, q_pe = q[..., : m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+
+    kv_a = x @ p["wkv_a"].to(dt)
+    c_kv, k_pe_in = kv_a[..., : m.kv_lora_rank], kv_a[..., m.kv_lora_rank:]
+    c_kv = _rms_vec(c_kv, p["kv_a_norm"], cfg.norm_eps)
+
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("decode mode requires a cache")
+        idx = cache["index"]
+        cos, sin = rope_tables(torch.full((1, 1), idx, device=dev), m.qk_rope_head_dim, cfg.rope_theta)
+        q_pe = apply_rope(q_pe, cos, sin)
+        k_pe_r = apply_rope(k_pe_in[:, :, None, :], cos, sin)[:, :, 0, :]
+        cc, cp = cache["c_kv"], cache["k_pe"]
+        cc[:, idx : idx + s] = c_kv.to(cc.dtype)  # in place (see module doc)
+        cp[:, idx : idx + s] = k_pe_r.to(cp.dtype)
+        kv = torch.einsum("btr,rhk->bthk", cc.to(dt), p["wkv_b"].to(dt))
+        k_nope, v = kv[..., : m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+        mask = (torch.arange(cc.shape[1], device=dev) <= idx)[None, None, :]
+        out = _mla_attend(q_nope, q_pe, k_nope, cp.to(dt), v, mask, m)
+        y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+        return y, {"c_kv": cc, "k_pe": cp, "index": idx + s}
+
+    cos, sin = rope_tables(torch.arange(s, device=dev), m.qk_rope_head_dim, cfg.rope_theta)
+    q_pe = apply_rope(q_pe, cos, sin)
+    k_pe = apply_rope(k_pe_in[:, :, None, :], cos, sin)[:, :, 0, :]
+    kv = torch.einsum("btr,rhk->bthk", c_kv, p["wkv_b"].to(dt))
+    k_nope, v = kv[..., : m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+    out = _mla_attend(q_nope, q_pe, k_nope, k_pe, v, _causal_window_mask(s, s, 0, 0, dev), m)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+
+    new_cache = cache
+    if mode == "prefill":
+        if cache is None:
+            raise ValueError("prefill mode requires a pre-allocated cache")
+        cc, cp = cache["c_kv"], cache["k_pe"]
+        cc[:, :s] = c_kv.to(cc.dtype)
+        cp[:, :s] = k_pe.to(cp.dtype)
+        new_cache = {"c_kv": cc, "k_pe": cp, "index": s}
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MoE — sort-based dispatch (static shapes, capacity-bounded)
+# ---------------------------------------------------------------------------
+
+
+def moe_init(scope: Scope, name: str, cfg: ArchConfig) -> None:
+    mo = cfg.moe
+    assert mo is not None
+    c = scope.child(name)
+    d, e, f = cfg.d_model, mo.n_experts, mo.expert_ff
+    c.param("router", (d, e), ("embed", "experts"), init="fan_in")
+    c.param("w_gate", (e, d, f), ("experts", "embed", "expert_ff"), init="fan_in")
+    c.param("w_up", (e, d, f), ("experts", "embed", "expert_ff"), init="fan_in")
+    c.param("w_down", (e, f, d), ("experts", "expert_ff", "embed"), init="fan_in")
+    if mo.n_shared:
+        sh = c.child("shared")
+        sh.param("w_gate", (d, mo.n_shared * f), ("embed", "ff"), init="fan_in")
+        sh.param("w_up", (d, mo.n_shared * f), ("embed", "ff"), init="fan_in")
+        sh.param("w_down", (mo.n_shared * f, d), ("ff", "embed"), init="fan_in")
+
+
+def moe_capacity(tokens: int, cfg: ArchConfig) -> int:
+    """Slots an expert has for a dispatch group of ``tokens`` tokens: the
+    reference's ``int(max(1, round(T k / E * cf)))`` (Python's round)."""
+    mo = cfg.moe
+    return int(max(1, round(tokens * mo.top_k / mo.n_experts * mo.capacity_factor)))
+
+
+def reset_moe_counts() -> None:
+    """Zero the (token, expert) assignments routed and dropped by
+    ``moe_apply`` since the last reset."""
+    moe_apply.routed, moe_apply.dropped = 0, 0
+
+
+def moe_counts() -> dict[str, int]:
+    """Assignments routed and dropped (over capacity) since the last reset;
+    reading them waits for the device once."""
+    return {"routed": int(moe_apply.routed), "dropped": int(moe_apply.dropped)}
+
+
+class MoERoute(NamedTuple):
+    """The assignments of one dispatch group, stably sorted by expert:
+    ``order`` maps each sorted position to its flat (token, choice) index
+    token * k + j; ``expert``, ``slot``, ``keep`` (slot < ``cap``) and the
+    normalised ``gate`` in the compute dtype are in sorted order; ``aux``
+    is the group's load-balance loss."""
+
+    order: torch.Tensor
+    expert: torch.Tensor
+    slot: torch.Tensor
+    keep: torch.Tensor
+    gate: torch.Tensor
+    aux: torch.Tensor
+    cap: int
+
+
+def moe_route(p: Params, xf: torch.Tensor, cfg: ArchConfig) -> MoERoute:
+    """Route the tokens ``xf`` (T, d) of one dispatch group: fp32 router
+    logits; sigmoid or softmax scores, their top k, gates normalised
+    (+1e-9); the Switch aux loss E * sum_e f_e p_e from the softmax
+    probabilities and the top-1 one-hot; the (token, choice) assignments
+    stably sorted by expert, each taking the next slot of its expert's
+    ``moe_capacity``, kept below it."""
+    mo = cfg.moe
+    t, k, e = xf.shape[0], mo.top_k, mo.n_experts
+    logits = (xf @ p["router"].to(xf.dtype)).float()  # (t, e)
+    scores = torch.sigmoid(logits) if mo.router_type == "sigmoid" else torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(scores, k, dim=-1)  # (t, k)
+    if mo.normalize_gates:
+        gate_vals = gate_vals / (gate_vals.sum(dim=-1, keepdim=True) + 1e-9)
+    aux = e * torch.sum(torch.softmax(logits, dim=-1).mean(dim=0) * F.one_hot(expert_idx[:, 0], e).float().mean(dim=0))
+
+    cap = moe_capacity(t, cfg)
+    flat_e = expert_idx.reshape(t * k)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    slot = torch.arange(t * k, device=xf.device) - torch.searchsorted(se, se, side="left")
+    return MoERoute(order, se, slot, slot < cap, gate_vals.reshape(t * k).to(xf.dtype)[order], aux, cap)
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed experts + optional shared experts. Returns (output,
+    aux load-balance loss).
+
+    The reference's semantics on one device, where its dispatch groups
+    (``current_dp_groups``, one per data-parallel shard) are one group of
+    all B*S tokens: ``moe_route``'s assignments, the kept ones dispatched
+    into (E, C) slots and dropped past them; the expert FFN a batched
+    product over the slots; gates cast to the compute dtype before the
+    combine; shared experts added after it.
+
+    The combine is deterministic: each token gathers the outputs of its
+    kept assignments and adds them to zero one by one in ascending expert
+    order — the order of the reference's scatter-add over the sorted
+    assignments — with no atomics, so a run on the card repeats bit for bit.
+    """
+    mo = cfg.moe
+    assert mo is not None
+    b, s, d = x.shape
+    dt = x.dtype
+    t, k, e = b * s, mo.top_k, mo.n_experts
+    xf = x.reshape(t, d)
+    r = moe_route(p, xf, cfg)
+    cap = r.cap
+    moe_apply.routed += t * k
+    moe_apply.dropped = moe_apply.dropped + (~r.keep).sum()
+
+    # Dispatch: kept assignments into their (expert, slot) rows; the dropped
+    # ones all into a scratch row past the end, which is cut off.
+    dest = torch.where(r.keep, r.expert * cap + r.slot, e * cap)
+    buf = torch.zeros((e * cap + 1, d), dtype=dt, device=x.device)
+    buf = buf.index_put((dest,), xf[r.order // k])[:-1].reshape(e, cap, d)
+
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["w_gate"].to(dt))) * torch.einsum(
+        "ecd,edf->ecf", buf, p["w_up"].to(dt))
+    y_buf = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(dt)).reshape(e * cap, d)
+
+    src = torch.where(r.keep, r.expert * cap + r.slot, 0)
+    gathered = y_buf[src] * (r.keep.to(dt) * r.gate)[:, None]  # (t*k, d), sorted order
+    # A token's k assignments sit in the sorted order by ascending expert;
+    # their sorted positions, ascending, give that order token by token.
+    pos = torch.empty_like(r.order)
+    pos[r.order] = torch.arange(t * k, device=x.device)
+    contrib = gathered[pos.reshape(t, k).sort(dim=-1).values]  # (t, k, d)
+    y = torch.zeros((t, d), dtype=dt, device=x.device)
+    for j in range(k):
+        y = y + contrib[:, j]
+
+    if mo.n_shared:
+        sp = p["shared"]
+        hs = F.silu(xf @ sp["w_gate"].to(dt)) * (xf @ sp["w_up"].to(dt))
+        y = y + hs @ sp["w_down"].to(dt)
+    return y.reshape(b, s, d), r.aux.float()
+
+
+reset_moe_counts()

@@ -29,11 +29,13 @@ class Scope:
     """Threads a generator + path through init; collects params and axes."""
 
     def __init__(self, generator: torch.Generator, device, dtype=torch.float32,
-                 path: str = "", store: dict | None = None, axes: dict | None = None):
+                 path: str = "", store: dict | None = None, axes: dict | None = None,
+                 cast: Callable[[tuple[str, ...], torch.Tensor], torch.Tensor] | None = None):
         self._gen = generator
         self._device = torch.device(device)
         self._dtype = dtype
         self._path = path
+        self._cast = cast
         self.params: dict = store if store is not None else {}
         self.axes: dict = axes if axes is not None else {}
 
@@ -41,7 +43,7 @@ class Scope:
         self.params.setdefault(name, {})
         self.axes.setdefault(name, {})
         return Scope(self._gen, self._device, self._dtype, f"{self._path}/{name}",
-                     self.params[name], self.axes[name])
+                     self.params[name], self.axes[name], self._cast)
 
     def param(
         self,
@@ -56,22 +58,25 @@ class Scope:
         if name in self.params:
             raise ValueError(f"duplicate param {self._path}/{name}")
         kw = dict(device=self._device, dtype=self._dtype)
+        # In place after the draw: one buffer of the leaf's size at a time.
         if init == "normal":
             s = scale if scale is not None else 0.02
-            val = torch.randn(shape, generator=self._gen, **kw) * s
+            val = torch.randn(shape, generator=self._gen, **kw).mul_(s)
         elif init == "fan_in":
             fan_in = shape[0] if len(shape) >= 1 else 1
             s = scale if scale is not None else 1.0
-            val = torch.randn(shape, generator=self._gen, **kw) * (s / math.sqrt(max(fan_in, 1)))
+            val = torch.randn(shape, generator=self._gen, **kw).mul_(s / math.sqrt(max(fan_in, 1)))
         elif init == "zeros":
             val = torch.zeros(shape, **kw)
         elif init == "ones":
             val = torch.ones(shape, **kw)
         elif init == "uniform":
             s = scale if scale is not None else 1.0
-            val = (torch.rand(shape, generator=self._gen, **kw) * 2.0 - 1.0) * s
+            val = torch.rand(shape, generator=self._gen, **kw).mul_(2.0).sub_(1.0).mul_(s)
         else:
             raise ValueError(f"unknown init {init!r}")
+        if self._cast is not None:
+            val = self._cast((*self._path.split("/")[1:], name), val)
         self.params[name] = val
         self.axes[name] = tuple(axes)
         return val
@@ -82,20 +87,39 @@ def init_with_axes(
     seed: int,
     device="cuda",
     dtype=torch.float32,
+    cast: Callable[[tuple[str, ...], torch.Tensor], torch.Tensor] | None = None,
 ) -> tuple[PyTree, PyTree]:
-    """Run ``init_fn`` under a fresh Scope on ``device``; return (params, axes)."""
+    """Run ``init_fn`` under a fresh Scope on ``device``; return (params, axes).
+
+    ``cast(path, leaf)`` (optional) maps each leaf as soon as it is drawn
+    (``matrix_cast``), so the master-dtype draws never coexist: the peak is
+    the cast model plus one leaf in ``dtype``, and the values are those of
+    casting the whole tree afterwards."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    scope = Scope(gen, device, dtype)
+    scope = Scope(gen, device, dtype, cast=cast)
     with torch.no_grad():
         init_fn(scope)
     return scope.params, scope.axes
 
 
+def matrix_cast(dtype, keep: tuple[str, ...] = ("head",)) -> Callable[[tuple[str, ...], torch.Tensor], torch.Tensor]:
+    """``cast_matrices``' rule for one leaf at key path ``path``: a floating
+    leaf of rank >= 2 goes to ``dtype`` unless a key of its path is in
+    ``keep``."""
+
+    def cast(path: tuple[str, ...], v: torch.Tensor) -> torch.Tensor:
+        if v.ndim >= 2 and v.is_floating_point() and not any(k in keep for k in path):
+            return v.to(dtype)
+        return v
+
+    return cast
+
+
 def cast_matrices(params: PyTree, dtype, keep: tuple[str, ...] = ("head",)) -> PyTree:
     """Cast every parameter of rank >= 2 to ``dtype``, except the subtrees
     and leaves named in ``keep``; vectors (norm scales, biases) stay as they
-    are.
+    are (``matrix_cast`` applies the same rule leaf by leaf at init).
 
     The JAX layers cast each matrix with ``.astype(compute dtype)`` at every
     call (``linear_apply``, the attention einsums, ``embedding_apply``), so
@@ -105,15 +129,12 @@ def cast_matrices(params: PyTree, dtype, keep: tuple[str, ...] = ("head",)) -> P
     tied head reads the embedding table, so a tied model keeps ``embed`` as
     well (the lookup casts the gathered rows, as the JAX layer does).
     """
-    out = {}
-    for k, v in params.items():
-        if k in keep:
-            out[k] = v
-        elif isinstance(v, dict):
-            out[k] = cast_matrices(v, dtype, keep)
-        else:
-            out[k] = v.to(dtype) if v.ndim >= 2 and v.is_floating_point() else v
-    return out
+    cast = matrix_cast(dtype, keep)
+
+    def walk(node: dict, path: tuple[str, ...]) -> dict:
+        return {k: walk(v, (*path, k)) if isinstance(v, dict) else cast((*path, k), v) for k, v in node.items()}
+
+    return walk(params, ())
 
 
 _LAYER = re.compile(r"^(prefix|suffix)_(\d+)$")

@@ -164,12 +164,112 @@ def test_cuda_tiered_every_group_and_head_dim(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_cuda_tiered_rejects_unbuilt_shapes(cuda_device):
-    """A group above 16 or a head dim not built raises; nothing falls back."""
+    """A group above 16 or a head dim above the largest built one raises;
+    nothing falls back."""
     z = lambda *s: torch.zeros(s, device=cuda_device)
-    for h, kv, d in [(17, 1, 64), (34, 2, 64), (4, 1, 48), (4, 1, 512)]:
+    for h, kv, d in [(17, 1, 64), (34, 2, 64), (4, 1, 384), (4, 1, 512)]:
         with pytest.raises(ValueError, match="built for"):
             ops.tiered_decode_attention(z(1, h, 1, d), z(1, kv, 8, d), z(1, kv, 8, d), z(1, kv, 8, d),
                                         z(1, kv, 8, d), 4, 4, 3)
+
+
+# (B, H, KV, S, T, window, softcap) at the reduced command_r_35b and
+# starcoder2_3b head dim D = 12, which no kernel is built for: ragged, T > S,
+# a window, rows without a key (T < S: the mean of v) and softcap 30.
+D12_FLASH_CASES = [(2, 8, 2, 50, 50, 0, 0.0), (2, 8, 2, 24, 64, 0, 0.0), (2, 8, 2, 96, 96, 16, 0.0),
+                   (1, 2, 2, 40, 24, 0, 0.0), (1, 8, 2, 70, 70, 0, 30.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernels_at_head_dim_12(cuda_device, dtype):
+    """Both launchers at D = 12 (zero-padded to the built 16, scale
+    1/sqrt(12)) against their plain versions: flash at the edge cases above,
+    the tiered batch entry at the planner's and at forced split counts, and
+    the per-row entry; one launch an op, on the kernels only."""
+    from repro_torch.kernels.tiered_decode import tiered_decode_rows_fwd
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda_device).to(dt)
+    ops.reset_launches()
+    for b, h, kv, s, t, window, cap in D12_FLASH_CASES:
+        q, k, v = rnd(b, h, s, 12), rnd(b, kv, t, 12), rnd(b, kv, t, 12)
+        kw = dict(window=window, logit_softcap=cap)
+        got = ops.flash_attention(q, k, v, **kw)
+        assert got.shape == q.shape and got.is_contiguous()
+        torch.testing.assert_close(got, tref.attention_ref(q, k, v, **kw), **TOL[dtype])
+    q, hk, hv, ck, cv = rnd(2, 8, 1, 12), rnd(2, 2, 16, 12), rnd(2, 2, 16, 12), rnd(2, 2, 64, 12), rnd(2, 2, 64, 12)
+    for hot_len, cold_len, newest in TIERED_CASES:
+        want = tref.tiered_ring_attention_ref(q, hk, hv, ck, cv, hot_len, cold_len, newest)
+        torch.testing.assert_close(ops.tiered_decode_attention(q, hk, hv, ck, cv, hot_len, cold_len, newest), want,
+                                   **TOL[dtype])
+    for hot_len, cold_len, newest, n_split in SPLIT_CASES:
+        want = tref.tiered_ring_attention_ref(q, hk, hv, ck, cv, hot_len, cold_len, newest)
+        got = tiered_decode_attention_fwd(q, hk, hv, ck, cv, hot_len, cold_len, newest, n_split=n_split)
+        torch.testing.assert_close(got, want, **TOL[dtype])
+    args = _rows(g, ROWS_CASES, 8, 2, 12, dt, cuda_device)
+    want = tref.tiered_rows_attention_ref(*args)
+    torch.testing.assert_close(ops.tiered_decode_rows_attention(*args), want, **TOL[dtype])
+    torch.testing.assert_close(tiered_decode_rows_fwd(*args, n_split=5), want, **TOL[dtype])
+    torch.cuda.synchronize()
+    assert ops.launches() == {"tiered_decode": len(TIERED_CASES), "flash_attention": len(D12_FLASH_CASES),
+                              "rglru": 0, "mlstm": 0}
+    assert ops.tiered_decode_rows_attention.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_softcap_at_grok_group(cuda_device, dtype):
+    """grok-1's prefill attention cut in batch and length: G = 6 (48 query
+    heads over 8 kv heads), D = 128, softcap 30, causal over ragged tiles and
+    with T > S; bf16 on the tensor cores."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda_device).to(dt)
+    ops.reset_launches()
+    for s, t in ((300, 300), (130, 260)):
+        q, k, v = rnd(1, 48, s, 128), rnd(1, 8, t, 128), rnd(1, 8, t, 128)
+        got = ops.flash_attention(q, k, v, logit_softcap=30.0)
+        torch.testing.assert_close(got, tref.attention_ref(q, k, v, logit_softcap=30.0), **TOL[dtype])
+    torch.cuda.synchronize()
+    assert ops.flash_path_launches() == ({"tensor_core": 2, "cuda_core": 0} if dtype == "bfloat16"
+                                         else {"tensor_core": 0, "cuda_core": 2})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek_v3_671b", "grok_1_314b"])
+def test_cuda_moe_matches_cpu_with_drops(cuda_device, arch):
+    """moe_apply on the card against the CPU in fp32 (TF32 off) at a
+    capacity factor of 0.5, where assignments are dropped: the same sorted
+    assignments and kept mask, outputs within 1e-5 relative to their
+    largest (the reference's fan-in init over the expert axis makes grok's
+    outputs reach ~250, where fp32 itself is off by ~1e-4), the aux loss
+    within 1e-6, and two card runs equal bit for bit (no atomics)."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.nn import layers as L
+    from repro_torch.nn.module import init_with_axes
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    params, _ = init_with_axes(lambda s: L.moe_init(s, "ffn", cfg), 0, device="cpu")
+    x = torch.randn((4, 64, cfg.d_model), generator=torch.Generator().manual_seed(0))
+    on_card = tree_map(lambda t: t.to(cuda_device), params["ffn"])
+    want_route = L.moe_route(params["ffn"], x.reshape(-1, cfg.d_model), cfg)
+    got_route = L.moe_route(on_card, x.to(cuda_device).reshape(-1, cfg.d_model), cfg)
+    assert torch.equal(got_route.order.cpu(), want_route.order)
+    assert torch.equal(got_route.keep.cpu(), want_route.keep) and not bool(want_route.keep.all())
+    want, want_aux = L.moe_apply(params["ffn"], x, cfg)
+    got, aux = L.moe_apply(on_card, x.to(cuda_device), cfg)
+    rel = float((got.cpu() - want).abs().max() / want.abs().max())
+    assert rel < 1e-5, rel
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, L.moe_apply(on_card, x.to(cuda_device), cfg)[0])
 
 
 @pytest.mark.cuda

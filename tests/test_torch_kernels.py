@@ -294,11 +294,12 @@ def test_tiered_head_tiles_and_one_wave(group):
 
 
 def test_tiered_launcher_refuses_unbuilt_shapes():
-    """A group above 16, a group that does not divide, or a head dim not
-    built raises before any device is touched: there is no fallback."""
+    """A group above 16, a group that does not divide, or a head dim above
+    the largest built one (smaller ones are zero-padded to a built one)
+    raises before any device is touched: there is no fallback."""
     from repro_torch.kernels.tiered_decode import tiered_decode_attention_fwd
 
-    for h, kv, d in [(17, 1, 64), (34, 2, 64), (6, 4, 64), (4, 1, 48), (4, 1, 512)]:
+    for h, kv, d in [(17, 1, 64), (34, 2, 64), (6, 4, 64), (4, 1, 320), (4, 1, 512)]:
         z = lambda *s: torch.zeros(s)
         with pytest.raises(ValueError, match="built for"):
             tiered_decode_attention_fwd(z(1, h, 1, d), z(1, kv, 8, d), z(1, kv, 8, d), z(1, kv, 8, d), z(1, kv, 8, d),

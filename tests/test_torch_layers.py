@@ -52,7 +52,8 @@ def init_both(init_fn_jax, seed=0):
     return params, params_from_jax(params, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["qwen3_8b", "recurrentgemma_9b", "xlstm_125m", "starcoder2_3b"])
+@pytest.mark.parametrize("arch", ["qwen3_8b", "recurrentgemma_9b", "xlstm_125m", "starcoder2_3b", "command_r_35b",
+                                  "gemma3_1b", "grok_1_314b", "deepseek_v3_671b"])
 @pytest.mark.parametrize("which", ["get_config", "get_reduced"])
 def test_config_copy_matches_jax(which, arch):
     want = dataclasses.asdict(getattr(jcfgs, which)(arch))
@@ -64,7 +65,7 @@ def test_config_copy_matches_jax(which, arch):
 
 def test_unported_arch_raises():
     with pytest.raises(KeyError):
-        tcfgs.get_config("gemma3_1b")
+        tcfgs.get_config("whisper_large_v3")
     with pytest.raises(KeyError):
         tcfgs.get_config("no_such_arch")
 

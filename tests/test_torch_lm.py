@@ -104,8 +104,13 @@ def test_prefill_decode_match_jax_and_full_forward(models):
 
 
 def test_unported_families_refused():
+    """The VLM and encoder-decoder families are not ported: LM refuses them
+    at construction (MoE, MLA and MTP are; tests/test_torch_families.py)."""
+    from repro_torch.configs.base import EncDecConfig, VLMConfig
     from repro_torch.models.lm import LM
 
-    cfg = dataclasses.replace(tcfgs.get_reduced("qwen3_8b"), attn_type="mla")
-    with pytest.raises(NotImplementedError, match="mla"):
-        LM(cfg)
+    base = tcfgs.get_reduced("qwen3_8b")
+    with pytest.raises(NotImplementedError, match="vlm"):
+        LM(dataclasses.replace(base, vlm=VLMConfig()))
+    with pytest.raises(NotImplementedError, match="encdec"):
+        LM(dataclasses.replace(base, encdec=EncDecConfig()))

@@ -26,6 +26,7 @@ from repro.launch.train import run_training as jax_run_training
 from repro.optim import adamw as jadamw
 from repro.runtime import CheckpointManager as JCheckpointManager
 import repro_torch.configs as tcfgs
+from repro_torch.configs.base import EncDecConfig
 from repro_torch import tree as T
 from repro_torch.core import TwoLevelStore as TStore
 from repro_torch.kernels import ops
@@ -205,8 +206,8 @@ def test_accum_matches_full_batch(starcoder):
 @pytest.mark.parametrize("cfg_fn", [
     lambda: tcfgs.get_reduced("xlstm_125m"),
     lambda: tcfgs.get_reduced("recurrentgemma_9b"),
-    lambda: dataclasses.replace(tcfgs.get_reduced("starcoder2_3b"), mtp=True),
-], ids=["xlstm", "recurrentgemma", "mtp"])
+    lambda: dataclasses.replace(tcfgs.get_reduced("starcoder2_3b"), encdec=EncDecConfig()),
+], ids=["xlstm", "recurrentgemma", "encdec"])
 def test_unported_training_branches_raise(cfg_fn):
     cfg = cfg_fn()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
