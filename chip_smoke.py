@@ -34,7 +34,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                  (T < S, at D=32 and D=128), D=64, recurrentgemma's D=256 MQA
                  window-2048 S=4096 prefill, a ragged D=256 case, grok-1's
                  prefill (H/KV 48/8, softcap 30), gemma3-1b's (4/1, D=256,
-                 S=2048, window 512 and global) and D=12 (padded), each in
+                 S=2048, window 512 and global), D=12 (padded), whisper-large-v3's
+                 decoder prefill (MHA 20/20 of D=64, S=224: a partial last
+                 tile) and internvl2-1b's (14/2 of D=64, S=1024), each in
                  bf16 and again in fp32; which kernel each took (bf16 at
                  D=64/128/256: the tensor cores), and SDPA as yardstick, with
                  the mask as a tensor and, where the mask is plain causal,
@@ -108,12 +110,25 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                  256, page 128 on its 4 global layers, ring pages on the 22
                  local ones); launches per kernel, MoE assignments dropped /
                  routed, peak bytes at init and serving; then profiled
-13c. serve_check_families  reduced grok, deepseek, gemma3 and command-r (D=12)
-                 in fp32: prefill + 4 decode steps on the card against the
-                 CPU, logits within 1e-4 relative and the same tokens a step
-13d. train_check_families  reduced deepseek (MoE aux + MTP) and grok in
-                 fp32: 4 train steps on the card against the CPU (step 1 within
-                 1e-5, all within 1e-4 relative)
+13c. serve_whisper / serve_internvl2  the encoder-decoder and the VLM at
+                 full width and depth, bf16, batch 4, 64 new tokens, through
+                 ``steps.dense_serve_loop`` (``make_prefill_step`` /
+                 ``make_serve_step``, dense caches): whisper-large-v3 (32 + 32
+                 layers, 20 heads of 64, 1500 frames of 1280 drawn from the
+                 seed, a decoder prompt of 224; 32 flash launches, the
+                 decoder's self-attention at prefill) and internvl2-1b (24
+                 layers, 14/2 heads of 64, 256 patches of 1024 drawn from the
+                 seed before a prompt of 768; 24 flash launches); params,
+                 self-cache and cross (k, v) bytes; then profiled
+13d. serve_check_families  reduced grok, deepseek, gemma3, command-r (D=12),
+                 whisper (D=16, with frames, dense caches) and internvl2
+                 (D=14, with patches through dense caches, text alone through
+                 the tiered ones at G=2) in fp32: prefill + 4 decode steps on
+                 the card against the CPU, logits within 1e-4 relative and
+                 the same tokens a step
+13e. train_check_families  reduced deepseek (MoE aux + MTP), grok, whisper
+                 and internvl2 in fp32: 4 train steps on the card against the
+                 CPU (step 1 within 1e-5, all within 1e-4 relative)
 14. phase_seconds  each phase's wall seconds, and the total from the build on
 15. kernels      one entry per kernel: launches in the serve phases that run
                  it, max error, times, bound
@@ -479,6 +494,8 @@ def flash_phase(record: dict) -> None:
         ("gemma3_local_d256", (4, 4, 1, 256), 2048, 2048, 512, 0.0),  # gemma3-1b's prefill, local layers
         ("gemma3_global_d256", (4, 4, 1, 256), 2048, 2048, 0, 0.0),  # and global ones
         ("d12_causal", (4, 8, 2, 12), 512, 512, 0, 0.0),  # the reduced command-r's D, zero-padded to 16
+        ("whisper_d64", (4, 20, 20, 64), 224, 224, 0, 0.0),  # whisper-large-v3's decoder prefill: MHA, 224 = 128 + 96
+        ("internvl2_d64", (4, 14, 2, 64), 1024, 1024, 0, 0.0),  # internvl2-1b's prefill: G = 7, 256 patches + 768
     ]
     cases = [(name if dt == "bfloat16" else name + "_fp32", dt, *rest) for dt in DTYPES for name, *rest in shapes]
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -709,16 +726,18 @@ def serve_phase(record: dict, out_dir: Path | None) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_serve(model, cfg, params, prompts, caches, out_dir: Path | None, phase: str) -> None:
-    """Where the time goes: a short profiled rerun (prefill, then 8 decode
-    steps) into fresh ``caches``, outside the timed and counted run."""
+def profile_serve(model, cfg, params, prompts, caches, out_dir: Path | None, phase: str,
+                  extra: dict | None = None) -> None:
+    """Where the time goes: a short profiled rerun (prefill, with the
+    ``extra`` inputs of the batch, then 8 decode steps) into fresh
+    ``caches``, outside the timed and counted run."""
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
 
     step = make_serve_step(model, cfg)
     state = {}
 
     def prefill():
-        tok, state["caches"] = make_prefill_step(model, cfg)(params, {"inputs": prompts}, caches)
+        tok, state["caches"] = make_prefill_step(model, cfg)(params, {"inputs": prompts, **(extra or {})}, caches)
         state["tok"] = tok[:, None]
 
     def decode():
@@ -1374,15 +1393,88 @@ def family_serve_phase(record: dict, out_dir: Path | None, phase: str, arch: str
     torch.cuda.empty_cache()
 
 
-FAMILY_CHECK_ARCHS = ("grok_1_314b", "deepseek_v3_671b", "gemma3_1b", "command_r_35b")
+def multimodal_serve_phase(record: dict, out_dir: Path | None, phase: str, arch: str, prompt_len: int,
+                           tokens: int) -> None:
+    """The encoder-decoder (whisper-large-v3: ``frames`` of (B, 1500, 1280))
+    or the VLM (internvl2-1b: ``patches`` of (B, 256, 1024), prepended to the
+    text) at full width and depth, bf16, attn_impl="flash", batch 4, random
+    weights and inputs from seed 0, through ``steps.dense_serve_loop``
+    (``make_prefill_step`` / ``make_serve_step`` over dense caches): prefill
+    and decode rates, launches per kernel (flash once a decoder layer at
+    prefill; the encoder and the cross-attention attend through the plain
+    ``_attend``, as the reference does), the params', self caches' and
+    cross (k, v) bytes, peak device bytes; then profiled."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config, make_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import init_params
+    from repro_torch.launch.steps import dense_serve_loop
+
+    torch.cuda.empty_cache()
+    B = 4
+    cfg = dataclasses.replace(get_config(arch), attn_impl="flash", scan_layers=False)
+    model = make_model(cfg)
+    t0 = time.perf_counter()
+    params = init_params(model, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab, (B, prompt_len), generator=gen, device="cuda")
+    if cfg.encdec is not None:
+        extra = {"frames": torch.randn((B, cfg.encdec.n_frames, cfg.encdec.frame_dim), generator=gen, device="cuda")}
+    else:
+        extra = {"patches": torch.randn((B, cfg.vlm.n_patches, cfg.vlm.patch_dim), generator=gen, device="cuda")}
+    seq = prompt_len + (cfg.vlm.n_patches if cfg.vlm is not None else 0)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out, prefill_s, decode_s, caches = dense_serve_loop(model, cfg, params, prompts, tokens, extra=extra)
+    launches, paths = ops.launches(), ops.flash_path_launches()
+    nbytes = lambda node: sum(t.numel() * t.element_size() for t in tree.leaves(node) if torch.is_tensor(t))
+    self_caches = caches["self"] if cfg.encdec is not None else caches
+    row = dict(arch=cfg.name, layers=cfg.n_layers,
+               encoder_layers=cfg.encdec.n_encoder_layers if cfg.encdec is not None else 0,
+               G=cfg.n_heads // cfg.n_kv_heads, D=cfg.resolved_head_dim, batch=B, prompt_len=prompt_len,
+               inputs={k: list(v.shape) for k, v in extra.items()}, prefill_seq=seq, tokens=tokens, init_s=init_s,
+               param_bytes=param_bytes, self_cache_device_bytes=nbytes(self_caches),
+               cross_kv_device_bytes=nbytes(caches["cross"]) if cfg.encdec is not None else 0,
+               prefill_s=prefill_s, prefill_tok_per_s=B * seq / prefill_s, decode_s=decode_s,
+               decode_tok_per_s=B * tokens / decode_s, launches=launches, flash_paths=paths,
+               peak_device_bytes=torch.cuda.max_memory_allocated())
+    emit(phase, **row)
+    want = {"tiered_decode": 0, "flash_attention": cfg.n_layers, "rglru": 0, "mlstm": 0}
+    if launches != want:
+        raise AssertionError(f"{phase}: launch counts {launches} != {want}")
+    if paths != {"tensor_core": cfg.n_layers, "cuda_core": 0}:
+        raise AssertionError(f"{phase}: bf16 flash launches off the tensor-core path: {paths}")
+    if tuple(out.shape) != (B, tokens + 1) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+        raise AssertionError(f"{phase}: bad generated tokens: shape {tuple(out.shape)}")
+    del caches
+    record[phase] = row
+    fresh = model.init_caches(B, seq + 9, torch.bfloat16, "cuda")
+    profile_serve(model, cfg, params, prompts, fresh, out_dir, phase, extra)
+    del params, fresh
+    torch.cuda.empty_cache()
+
+
+# (arch, the prefill's other input): internvl2 with its patches through
+# dense caches, and its text alone through the tiered ones (the reference's
+# tiered loop prefills no patches).
+FAMILY_CHECK_CASES = (("grok_1_314b", None), ("deepseek_v3_671b", None), ("gemma3_1b", None), ("command_r_35b", None),
+                      ("whisper_large_v3", "frames"), ("internvl2_1b", "patches"), ("internvl2_1b", None))
 
 
 def serve_check_families_phase(record: dict) -> None:
-    """The reduced grok, deepseek, gemma3 and command-r in fp32 (TF32 off),
-    attn_impl="flash": prefill and 4 decode steps on the card against the
-    same port on the CPU (the kernels there, their plain versions here),
-    through the tiered caches where the arch takes them (gemma3's global
-    layer, every command-r layer at D = 12) and the dense ones else; at each
+    """The reduced grok, deepseek, gemma3, command-r, whisper and internvl2
+    in fp32 (TF32 off), attn_impl="flash": prefill and 4 decode steps on the
+    card against the same port on the CPU (the kernels there, their plain
+    versions here), through the tiered caches where the arch takes them
+    (gemma3's global layer, every command-r layer at D = 12, internvl2's
+    text-only layers at G = 2, D = 14) and the dense ones else (whisper at
+    D = 16 after encoding its frames, internvl2 after its patches); at each
     step the logits' max relative error < 1e-4 and the same greedy tokens."""
     import numpy as np
     import torch
@@ -1396,20 +1488,33 @@ def serve_check_families_phase(record: dict) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     B, prompt_len, steps, window, page = 2, 40, 4, 16, 8
     rows = []
-    for arch in FAMILY_CHECK_ARCHS:
+    for arch, extra in FAMILY_CHECK_CASES:
         cfg = dataclasses.replace(get_reduced(arch), dtype="float32", attn_impl="flash", scan_layers=False)
         model = make_model(cfg)
         params = {"cpu": init_with_axes(model.init, 1, device="cpu")[0]}
         params["cuda"] = tree.tree_map(lambda t: t.to("cuda"), params["cpu"])
-        tiered = cfg.attn_type == "gqa" and cfg.attn_logit_softcap == 0
-        prompts = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (B, prompt_len)))
+        rng = np.random.default_rng(1)
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (B, prompt_len)))
+        # The GQA self-attention layers' windows (the encoder-decoder's: its decoder's, all full).
+        windows = [0] * cfg.n_layers if cfg.encdec is not None else \
+            [spec.window for spec in model.prefix if spec.mixer == "gqa"]
+        gqa, full = len(windows), windows.count(0)
+        tiered = extra is None and cfg.attn_type == "gqa" and cfg.attn_logit_softcap == 0
+        shapes = {"frames": (B, cfg.encdec.n_frames, cfg.d_model) if cfg.encdec else None,
+                  "patches": (B, cfg.vlm.n_patches, cfg.vlm.patch_dim) if cfg.vlm else None}
+        x = torch.from_numpy(rng.normal(size=shapes[extra]).astype(np.float32)) if extra else None
+        n_patches = cfg.vlm.n_patches if extra == "patches" else 0
         logits, toks = {}, {}
         for dev in ("cpu", "cuda"):
-            n = prompt_len + steps + 1
+            n = n_patches + prompt_len + steps + 1
             caches = (make_tiered_caches(model, cfg, B, n, window, page, torch.float32, dev) if tiered
                       else model.init_caches(B, n, torch.float32, dev))
             ops.reset_launches()
-            lg, caches = model.prefill(params[dev], prompts.to(dev), caches)
+            if extra == "frames":
+                lg, caches = model.prefill(params[dev], x.to(dev), prompts.to(dev), caches)
+            else:
+                kw = {"patches": x.to(dev)} if extra == "patches" else {}
+                lg, caches = model.prefill(params[dev], prompts.to(dev), caches, **kw)
             logits[dev], toks[dev] = [lg[:, -1].cpu()], [lg[:, -1].argmax(-1).cpu()]
             for _ in range(steps):
                 lg, caches = model.decode_step(params[dev], toks[dev][-1][:, None].to(dev), caches)
@@ -1418,27 +1523,27 @@ def serve_check_families_phase(record: dict) -> None:
             launches, paths = ops.launches(), ops.flash_path_launches()
         rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(logits["cuda"], logits["cpu"])]
         same = [bool(torch.equal(a, b)) for a, b in zip(toks["cuda"], toks["cpu"])]
-        gqa = sum(spec.mixer == "gqa" for spec in model.prefix)
-        full = sum(spec.mixer == "gqa" and spec.window == 0 for spec in model.prefix)
         want = {"tiered_decode": full * steps if tiered else 0, "flash_attention": gqa, "rglru": 0, "mlstm": 0}
-        row = dict(arch=cfg.name, layers=cfg.n_layers, G=cfg.n_heads // cfg.n_kv_heads, D=cfg.resolved_head_dim,
-                   caches="tiered" if tiered else "dense", batch=B, prompt_len=prompt_len, steps=steps,
-                   logits_rel_err=rel, tokens_equal=same, launches=launches, flash_paths=paths,
+        row = dict(arch=cfg.name, inputs=extra or "text", layers=cfg.n_layers, G=cfg.n_heads // cfg.n_kv_heads,
+                   D=cfg.resolved_head_dim, caches="tiered" if tiered else "dense", batch=B, prompt_len=prompt_len,
+                   steps=steps, logits_rel_err=rel, tokens_equal=same, launches=launches, flash_paths=paths,
                    tokens=[t[0].item() for t in toks["cuda"]])
         emit("serve_check_families", **row)
         if max(rel) >= 1e-4 or not all(same) or launches != want:
-            raise AssertionError(f"serve_check_families {arch}: logits relative error {rel} (bar 1e-4), tokens "
-                                 f"equal {same}, launches {launches} (want {want})")
+            raise AssertionError(f"serve_check_families {arch} ({extra or 'text'}): logits relative error {rel} "
+                                 f"(bar 1e-4), tokens equal {same}, launches {launches} (want {want})")
         rows.append(row)
     record["serve_check_families"] = rows
 
 
 def train_check_families_phase(record: dict) -> None:
-    """The training step of the MoE and MLA families on the card against
-    the same steps on the CPU: reduced deepseek (MoE aux + MTP) and reduced
-    grok in fp32, TF32 off, the same initial params (drawn on the CPU) and
-    4 batches of 4 x 64; step 1's loss within 1e-5 relative, every step's
-    within 1e-4; ce, moe_aux and mtp_ce printed; no kernel launched."""
+    """The training step of the MoE, MLA, encoder-decoder and VLM families
+    on the card against the same steps on the CPU: reduced deepseek (MoE
+    aux + MTP), grok, whisper (with frames) and internvl2 (with patches) in
+    fp32, TF32 off, the same initial params (drawn on the CPU) and 4
+    batches of 4 x 64 (and their frames or patches, drawn with them); step
+    1's loss within 1e-5 relative, every step's within 1e-4; ce, moe_aux
+    and mtp_ce printed; no kernel launched."""
     import numpy as np
     import torch
 
@@ -1450,21 +1555,28 @@ def train_check_families_phase(record: dict) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = []
-    for arch in ("deepseek_v3_671b", "grok_1_314b"):
+    for arch in ("deepseek_v3_671b", "grok_1_314b", "whisper_large_v3", "internvl2_1b"):
         cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
         model = make_model(cfg)
         opt = AdamW(learning_rate=1e-3)
         states = {"cpu": init_state(model, cfg, opt, seed=0, device="cpu")[0]}
         states["cuda"] = tree.tree_map(lambda t: t.to("cuda"), states["cpu"])
         rng = np.random.default_rng(0)
-        batches = [torch.from_numpy(rng.integers(0, cfg.vocab, (4, 65))) for _ in range(4)]
+        batches = []
+        for _ in range(4):
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 65)))
+            batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+            if cfg.encdec is not None:
+                batch["frames"] = torch.from_numpy(rng.normal(size=(4, cfg.encdec.n_frames, cfg.d_model)))
+            if cfg.vlm is not None:
+                batch["patches"] = torch.from_numpy(rng.normal(size=(4, cfg.vlm.n_patches, cfg.vlm.patch_dim)))
+            batches.append({k: v.float() if v.is_floating_point() else v for k, v in batch.items()})
         step = make_train_step(model, cfg, opt)
         metrics = {"cpu": [], "cuda": []}
         ops.reset_launches()
         for dev in ("cpu", "cuda"):
-            for toks in batches:
-                toks = toks.to(dev)
-                states[dev], m = step(states[dev], {"inputs": toks[:, :-1], "labels": toks[:, 1:]})
+            for batch in batches:
+                states[dev], m = step(states[dev], {k: v.to(dev) for k, v in batch.items()})
                 metrics[dev].append({k: float(m[k]) for k in ("loss", "ce", "moe_aux", "mtp_ce") if k in m})
         rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(metrics["cuda"], metrics["cpu"])]
         row = dict(arch=cfg.name, dtype="float32", cuda=metrics["cuda"], cpu=metrics["cpu"], losses_rel_apart=rel,
@@ -1708,7 +1820,7 @@ def train_check_phase(record: dict) -> None:
 
 
 SERVE_PHASES = ("serve", "serve_store", "serve_sessions", "serve_recurrentgemma", "serve_xlstm", "serve_grok",
-                "serve_deepseek", "serve_gemma3")
+                "serve_deepseek", "serve_gemma3", "serve_whisper", "serve_internvl2")
 
 
 def kernels_line(record: dict) -> dict:
@@ -1823,6 +1935,10 @@ def main() -> int:
                                                       n_layers=4, prompt_len=1024, tokens=32)),
         ("serve_gemma3", lambda: family_serve_phase(record, out_dir, "serve_gemma3", "gemma3_1b", n_layers=26,
                                                     prompt_len=2048, tokens=64, window=256, page=128)),
+        ("serve_whisper", lambda: multimodal_serve_phase(record, out_dir, "serve_whisper", "whisper_large_v3",
+                                                         prompt_len=224, tokens=64)),
+        ("serve_internvl2", lambda: multimodal_serve_phase(record, out_dir, "serve_internvl2", "internvl2_1b",
+                                                           prompt_len=768, tokens=64)),
         ("serve_check_families", lambda: serve_check_families_phase(record)),
         ("train", lambda: train_phase(record, out_dir)),
         ("train_check", lambda: train_check_phase(record)),

@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-Only the architectures whose layers the port has are registered (the
-JAX registry's decoder LMs); the encoder-decoder and VLM ones raise
-``KeyError`` until their slice lands.
+The JAX registry's ten architectures, in its order.  Each module exports
+``config()`` (exact published shape) and ``reduced()`` (tiny same-family
+variant for CPU smoke tests).
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ ARCH_IDS = [
     "qwen3_8b",
     "gemma3_1b",
     "xlstm_125m",
+    "whisper_large_v3",
+    "internvl2_1b",
     "recurrentgemma_9b",
 ]
 
@@ -28,7 +30,7 @@ _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 def _module(arch: str):
     arch = _ALIASES.get(arch, arch)
     if arch not in ARCH_IDS:
-        raise KeyError(f"unknown or not yet ported arch {arch!r}; available: {sorted(ARCH_IDS + list(_ALIASES))}")
+        raise KeyError(f"unknown arch {arch!r}; available: {sorted(ARCH_IDS + list(_ALIASES))}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 
@@ -41,10 +43,11 @@ def get_reduced(arch: str) -> ArchConfig:
 
 
 def make_model(cfg: ArchConfig):
-    """Instantiate the model for a config (the LM refuses unported families)."""
+    """Instantiate the right model class for a config."""
+    from repro_torch.models.encdec import EncDec
     from repro_torch.models.lm import LM
 
-    return LM(cfg)
+    return EncDec(cfg) if cfg.encdec is not None else LM(cfg)
 
 
 __all__ = [

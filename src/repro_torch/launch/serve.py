@@ -45,6 +45,12 @@ prefix, whose cold pages the store then holds once.
         --kv-window 16 --kv-page 8 --shared-prefix 32 \
         --store-root /tmp/kvstore --host-budget-kb 256 --device cpu
 
+whisper-large-v3 and internvl2-1b's dense loops take inputs the CLI has
+none of, as in the reference's CLI (audio frames, image patches): it exits
+naming them.  internvl2-1b serves its text under ``--kv-window`` (the
+reference's tiered loop prefills no patches); whisper-large-v3 serves
+through ``launch.steps.dense_serve_loop(..., extra={"frames": ...})``.
+
 Without ``--kv-window`` the dense
 dict-cache loop runs: windowed attention keeps its O(window) ring page and
 the recurrent layers (recurrentgemma-9b, xlstm-125m) their O(1) states.
@@ -178,6 +184,12 @@ def main() -> None:
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     reset_moe_counts()
+    if cfg.encdec is not None:
+        raise SystemExit(f"{cfg.name}: the serve CLI has no audio frames for its encoder (as the reference's CLI "
+                         f"passes none); call launch.steps.dense_serve_loop with extra={{'frames': ...}}")
+    if cfg.vlm is not None and args.kv_window <= 0:
+        raise SystemExit(f"{cfg.name}: the dense serve loop needs image patches, which the CLI has none of (as the "
+                         f"reference's); --kv-window serves its text alone")
     if args.sessions > 0 and args.kv_window <= 0:
         raise SystemExit("--sessions requires --kv-window")
     if args.kv_window > 0:

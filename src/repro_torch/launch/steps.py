@@ -49,21 +49,22 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Ten
 
 
 def make_loss_fn(model, cfg: ArchConfig) -> Callable:
-    """The reference's loss for decoder LMs: CE + z-loss over the logits,
-    plus ``MOE_AUX_WEIGHT`` x the MoE layers' load-balance loss and, with
-    the MTP head, ``MTP_WEIGHT`` x its loss at predicting t+2 (from every
-    hidden state but the last and the inputs shifted by one).  The
-    encoder-decoder and VLM branches and recurrent training wait for their
-    slices (``ROADMAP.md``)."""
-    missing = [name for name, on in (
-        ("encdec", cfg.encdec is not None), ("vlm", cfg.vlm is not None), ("recurrent", cfg.recurrent is not None),
-    ) if on]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: training with {', '.join(missing)} layers is not ported yet (see ROADMAP.md)")
+    """The reference's loss: CE + z-loss over the logits (the encoder-decoder's
+    given ``batch["frames"]``, a VLM's at its text positions given
+    ``batch["patches"]``), plus ``MOE_AUX_WEIGHT`` x the MoE layers'
+    load-balance loss and, with the MTP head, ``MTP_WEIGHT`` x its loss at
+    predicting t+2 (from every hidden state but the last and the inputs
+    shifted by one).  Recurrent training waits for its slice
+    (``ROADMAP.md``)."""
+    if cfg.recurrent is not None:
+        raise NotImplementedError(f"{cfg.name}: training with recurrent layers is not ported yet (see ROADMAP.md)")
 
     def loss_fn(params: PyTree, batch: dict) -> tuple[torch.Tensor, dict]:
-        if cfg.mtp:
+        if cfg.encdec is not None:
+            logits, aux = model.train_logits(params, batch["frames"], batch["inputs"])
+        elif cfg.vlm is not None:
+            logits, aux = model.train_logits(params, batch["inputs"], batch["patches"])
+        elif cfg.mtp:
             hidden, aux = model.train_hidden(params, batch["inputs"])
             x = L.norm_apply(params["final_norm"], hidden, cfg)
             logits = L.logits_apply(params["embed"], params.get("head"), x, cfg)
@@ -74,7 +75,7 @@ def make_loss_fn(model, cfg: ArchConfig) -> Callable:
         if cfg.moe is not None:
             total = total + MOE_AUX_WEIGHT * aux
             metrics["moe_aux"] = aux.detach()
-        if cfg.mtp:
+        if cfg.mtp and cfg.encdec is None and cfg.vlm is None:
             mtp_logits = model.mtp_logits(params, batch["inputs"][:, 1:], hidden[:, :-1])
             mtp_total, mtp_ce = cross_entropy(mtp_logits, batch["labels"][:, 1:])
             total = total + MTP_WEIGHT * mtp_total
@@ -143,8 +144,18 @@ def init_state(model, cfg: ArchConfig, optimizer: AdamW, seed: int = 0, device="
 
 
 def make_prefill_step(model, cfg: ArchConfig) -> Callable:
+    """prefill_step(params, batch, caches) -> (greedy token, caches): the
+    encoder-decoder reads ``batch["frames"]``, a VLM ``batch["patches"]``
+    (without them it prefills its text alone, as the reference's tiered
+    loop does)."""
+
     def prefill_step(params, batch, caches):
-        logits, caches = model.prefill(params, batch["inputs"], caches)
+        if cfg.encdec is not None:
+            logits, caches = model.prefill(params, batch["frames"], batch["inputs"], caches)
+        elif cfg.vlm is not None:
+            logits, caches = model.prefill(params, batch["inputs"], caches, patches=batch.get("patches"))
+        else:
+            logits, caches = model.prefill(params, batch["inputs"], caches)
         return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32), caches
 
     return prefill_step
@@ -203,24 +214,29 @@ def dense_serve_loop(
     prompts: torch.Tensor,  # (B, S) int
     tokens: int,
     dtype=torch.bfloat16,
+    extra: dict | None = None,
 ) -> tuple[torch.Tensor, float, float, dict]:
     """Batched prefill + greedy decode over the model's own caches (dict KV
-    pages, windowed ring pages, recurrent states), on the device ``prompts``
-    lie on.  Returns (generated, prefill_s, decode_s, caches)."""
+    pages, windowed ring pages, recurrent states, the encoder-decoder's
+    self and cross caches), on the device ``prompts`` lie on.  ``extra``
+    holds the prefill batch's other inputs (whisper's ``frames``, a VLM's
+    ``patches``, whose positions the caches hold too).  Returns (generated,
+    prefill_s, decode_s, caches)."""
     batch, prompt_len = prompts.shape
-    device = prompts.device
-    caches = model.init_caches(batch, prompt_len + tokens + 1, dtype, device)
-    return _greedy(model, cfg, params, prompts, tokens, caches)
+    n_patches = extra["patches"].shape[1] if extra and "patches" in extra else 0
+    caches = model.init_caches(batch, n_patches + prompt_len + tokens + 1, dtype, prompts.device)
+    return _greedy(model, cfg, params, prompts, tokens, caches, extra)
 
 
-def _greedy(model, cfg, params, prompts, tokens, caches):
-    """Prefill ``prompts`` into ``caches``, then ``tokens`` greedy decode
-    steps; each phase is timed up to a synchronise of the device."""
+def _greedy(model, cfg, params, prompts, tokens, caches, extra: dict | None = None):
+    """Prefill ``prompts`` (and the batch's ``extra`` inputs) into
+    ``caches``, then ``tokens`` greedy decode steps; each phase is timed up
+    to a synchronise of the device."""
     prefill = make_prefill_step(model, cfg)
     step = make_serve_step(model, cfg)
 
     t0 = time.perf_counter()
-    tok, caches = prefill(params, {"inputs": prompts}, caches)
+    tok, caches = prefill(params, {"inputs": prompts, **(extra or {})}, caches)
     tok = tok[:, None]
     sync_device(prompts.device)
     prefill_s = time.perf_counter() - t0

@@ -2,9 +2,10 @@
 family (qwen3-8b, starcoder2-3b, command-r-35b, gemma3-1b's 5:1 local and
 global layers), MoE (grok-1-314b), MLA + MoE with DeepSeek's multi-token
 prediction head (deepseek-v3-671b) and the recurrent ones: the RG-LRU hybrid
-with local attention (recurrentgemma-9b) and xLSTM (xlstm-125m).  VLM
-patches and the encoder-decoder wait for their slice and are refused at
-construction.
+with local attention (recurrentgemma-9b) and xLSTM (xlstm-125m), and the
+VLM (internvl2-1b): precomputed patch embeddings, projected by ``vlm_proj``
+and prepended to the text at train and prefill; decode is text-only.  The
+encoder-decoder (whisper) is ``models.encdec.EncDec``.
 
 The stack is always unrolled (``prefix_0 .. prefix_{L-1}``): PyTorch runs
 eagerly and has no ``lax.scan``, and the two-level cache is host state that
@@ -15,9 +16,9 @@ stacks them back (``stack_plan``) for a checkpoint either package restores.
 Three entry points (pure functions of params and caches; only the first is
 differentiable):
 
-    train_logits(params, tokens)        -> (logits, aux)
-    train_hidden(params, tokens)        -> (hidden, aux)   [+ mtp_logits]
-    prefill(params, tokens, caches)     -> (logits, new_caches)
+    train_logits(params, tokens, patches=None)     -> (logits, aux)
+    train_hidden(params, tokens, patches=None)     -> (hidden, aux)   [+ mtp_logits]
+    prefill(params, tokens, caches, patches=None)  -> (logits, new_caches)
     decode_step(params, token, caches)  -> (logits, new_caches)
 """
 
@@ -157,9 +158,6 @@ def apply_layer(p: Params, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig,
 
 class LM:
     def __init__(self, cfg: ArchConfig):
-        missing = [name for name, on in (("vlm", cfg.vlm is not None), ("encdec", cfg.encdec is not None)) if on]
-        if missing:
-            raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported yet")
         self.cfg = cfg
         # Unrolled: every layer is prefix_i (see the module docstring).
         self.prefix, self.period, self.n_periods, self.suffix = layer_specs(cfg), [], 0, []
@@ -169,6 +167,8 @@ class LM:
         L.embedding_init(scope, "embed", cfg.vocab, cfg.d_model)
         if not cfg.tie_embeddings:
             scope.child("head").param("w", (cfg.d_model, cfg.vocab), ("embed", "vocab"), init="fan_in")
+        if cfg.vlm is not None:
+            L.linear_init(scope, "vlm_proj", cfg.vlm.patch_dim, cfg.d_model, ("embed", None))
         for i, spec in enumerate(self.prefix):
             init_layer(scope.child(f"prefix_{i}"), spec, cfg)
         L.norm_init(scope, "final_norm", cfg.d_model, cfg)
@@ -196,21 +196,35 @@ class LM:
                 new_caches[key] = nc
         return x, (new_caches if caches is not None else None), aux_total
 
+    def _embed(self, params: Params, tokens: torch.Tensor, patches: torch.Tensor | None) -> torch.Tensor:
+        x = L.embedding_apply(params["embed"], tokens, self.cfg)
+        if self.cfg.vlm is not None and patches is not None:
+            # Patches arrive at train/prefill; decode steps are text-only.
+            pe = L.linear_apply(params["vlm_proj"], patches.to(x.dtype))
+            x = torch.cat([pe, x], dim=1)
+        return x
+
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x = L.norm_apply(params["final_norm"], x, self.cfg)
         return L.logits_apply(params["embed"], params.get("head"), x, self.cfg)
 
-    def train_logits(self, params: Params, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence causal logits. Returns (logits fp32, aux_loss).
+    def train_logits(self, params: Params, tokens: torch.Tensor,
+                     patches: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence causal logits (a VLM's at its text positions only).
+        Returns (logits fp32, aux_loss).
 
         Differentiable (the training forward, ``launch.steps.make_loss_fn``):
         autograd tracks it when the params require grad."""
-        x, aux = self.train_hidden(params, tokens)
-        return self._logits(params, x), aux
+        x, aux = self.train_hidden(params, tokens, patches)
+        logits = self._logits(params, x)
+        if self.cfg.vlm is not None:
+            logits = logits[:, self.cfg.vlm.n_patches :, :]  # text positions only
+        return logits, aux
 
-    def train_hidden(self, params: Params, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def train_hidden(self, params: Params, tokens: torch.Tensor,
+                     patches: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """Hidden states before the final norm (for the MTP head) + aux."""
-        x = L.embedding_apply(params["embed"], tokens, self.cfg)
+        x = self._embed(params, tokens, patches)
         x, _, aux = self._run_stack(params, x, None, "train")
         return x, aux
 
@@ -226,9 +240,11 @@ class LM:
         return self._logits(params, z)
 
     @torch.no_grad()
-    def prefill(self, params: Params, tokens: torch.Tensor, caches: dict) -> tuple[torch.Tensor, dict]:
-        """Process the prompt; fill caches; return last-position logits."""
-        x = L.embedding_apply(params["embed"], tokens, self.cfg)
+    def prefill(self, params: Params, tokens: torch.Tensor, caches: dict,
+                patches: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+        """Process the prompt (after a VLM's patches); fill caches; return
+        last-position logits."""
+        x = self._embed(params, tokens, patches)
         x, new_caches, _ = self._run_stack(params, x, caches, "prefill")
         return self._logits(params, x[:, -1:, :]), new_caches
 

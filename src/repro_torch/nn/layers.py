@@ -1,8 +1,8 @@
 """Layer library of the port: norms, projections, RoPE, GQA attention
-(sliding window, qk-norm, dict or two-level KV cache), DeepSeek's MLA with
-its latent cache, MLPs and the sort-dispatched MoE — the port of
-``repro/nn/layers.py`` but its ``cross_kv`` branch.  Every apply function is
-differentiable on the plain path; training attends through ``_attend``
+(sliding window, qk-norm, dict or two-level KV cache, or cross-attention
+onto precomputed keys), DeepSeek's MLA with its latent cache, MLPs and the
+sort-dispatched MoE — the port of ``repro/nn/layers.py``.  Every apply
+function is differentiable on the plain path; training attends through ``_attend``
 (``attn_impl="xla"``, as the reference trains), since the flash kernel has
 no backward.  MLA and MoE reach no kernel: the reference has no Pallas
 kernel for them.
@@ -230,19 +230,35 @@ def attention_apply(
     cache: Any = None,
     mode: str = "train",
     positions: torch.Tensor | None = None,
+    cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
     use_rope: bool = True,
 ) -> tuple[torch.Tensor, Any]:
-    """Self-attention with an optional dict or two-level KV cache."""
+    """Self- (or cross-) attention with an optional dict or two-level KV cache.
+
+    ``cross_kv`` switches to cross-attention: (k, v) come precomputed from
+    the encoder; no cache/rope/mask beyond all-visible is applied, and it
+    attends through ``_attend`` (the reference's flash call serves
+    self-attention only)."""
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
     dt = x.dtype
     dev = x.device
 
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
     if "bq" in p:
         q = q + p["bq"].to(dt)
+
+    if cross_kv is not None:
+        k, v = cross_kv
+        mask = torch.ones((1, s, k.shape[1]), dtype=torch.bool, device=dev)
+        if cfg.qk_norm:
+            q = _head_rms(q, p["q_norm"], cfg.norm_eps)
+        out = _attend(q, k, v, mask, cfg)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), cache
+
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    if "bk" in p:
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
 

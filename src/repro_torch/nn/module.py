@@ -139,6 +139,7 @@ def cast_matrices(params: PyTree, dtype, keep: tuple[str, ...] = ("head",)) -> P
 
 _LAYER = re.compile(r"^(prefix|suffix)_(\d+)$")
 _SLOT = re.compile(r"^slot_(\d+)$")
+_ENCDEC_SIDES = ("encoder", "decoder")
 
 
 def params_from_jax(tree: PyTree, device="cuda", dtype=None) -> PyTree:
@@ -162,10 +163,13 @@ def params_from_jax(tree: PyTree, device="cuda", dtype=None) -> PyTree:
 def from_reference_layout(tree: PyTree, leaf: Callable = lambda x: x) -> PyTree:
     """The JAX package's parameter layout -> the port's unrolled one.
 
-    The reference stacks the repeating layers: ``prefix_i``, then
+    The reference's LM stacks the repeating layers: ``prefix_i``, then
     ``periods/slot_j`` with a leading period axis, then ``suffix_i``
-    (``models.lm.stack_plan``).  The port's stack is always unrolled, so the
-    layers are renumbered into consecutive ``prefix_i``; ``leaf`` maps every
+    (``models.lm.stack_plan``).  Its encoder-decoder stacks each side's
+    layers under ``encoder/periods`` and ``decoder/periods``, one layer a
+    period and no ``slot_j``.  The port's stacks are always unrolled, so the
+    layers are renumbered into consecutive ``prefix_i`` (``encoder/prefix_i``
+    and ``decoder/prefix_i`` for the encoder-decoder); ``leaf`` maps every
     leaf on the way (tensors and numpy arrays are indexed as they are).
     """
 
@@ -181,16 +185,21 @@ def from_reference_layout(tree: PyTree, leaf: Callable = lambda x: x) -> PyTree:
             layers[int(m.group(2))] = conv(v)
         elif m:
             suffix[int(m.group(2))] = conv(v)
+        elif k in _ENCDEC_SIDES:
+            out[k] = from_reference_layout(v, leaf)
         elif k != "periods":
             out[k] = conv(v)
     n = len(layers)
     if "periods" in tree:
-        slots = sorted(int(_SLOT.match(s).group(1)) for s in tree["periods"])
-        first = next(iter(tree["periods"].values()))
-        n_periods = _leading_dim(first)
+        periods = tree["periods"]
+        n_periods = _leading_dim(periods)
+        if all(_SLOT.match(s) for s in periods):
+            slots = sorted(int(_SLOT.match(s).group(1)) for s in periods)
+        else:  # one layer a period (the encoder-decoder's sides)
+            periods, slots = {"slot_0": periods}, [0]
         for p in range(n_periods):
             for j in slots:
-                layers[n] = conv(_index_leading(tree["periods"][f"slot_{j}"], p))
+                layers[n] = conv(_index_leading(periods[f"slot_{j}"], p))
                 n += 1
     for i in sorted(suffix):
         layers[n] = suffix[i]
@@ -211,9 +220,15 @@ def to_reference_layout(params: PyTree, cfg) -> PyTree:
     tensors, ``np.stack`` for arrays, so this copies them) and the rest
     become ``suffix_i``.  A checkpoint of the result names and lays out
     every leaf as the JAX package's does.
+
+    An encoder-decoder (``cfg.encdec``) stacks each side's ``prefix_i``
+    into its ``periods``, whatever ``cfg.scan_layers`` says, as the
+    reference's ``stacked_init`` lays them out.
     """
     from repro_torch.models.lm import stack_plan  # models.lm imports this module
 
+    if cfg.encdec is not None:
+        return {k: _stack_side(v) if k in _ENCDEC_SIDES else v for k, v in params.items()}
     prefix, period, n_periods, suffix = stack_plan(cfg)
     layers = [params[f"prefix_{i}"] for i in range(cfg.n_layers)]
     out = {k: v for k, v in params.items() if not _LAYER.match(k)}
@@ -228,6 +243,13 @@ def to_reference_layout(params: PyTree, cfg) -> PyTree:
     for i in range(len(suffix)):
         out[f"suffix_{i}"] = layers[len(prefix) + n_periods * len(period) + i]
     return out
+
+
+def _stack_side(side: dict) -> dict:
+    """One side of an encoder-decoder: its ``prefix_i`` stacked into ``periods``."""
+    n = sum(bool(_LAYER.match(k)) for k in side)
+    out = {k: v for k, v in side.items() if not _LAYER.match(k)}
+    return {**out, "periods": _stack([side[f"prefix_{i}"] for i in range(n)])}
 
 
 def _stack(trees: list) -> PyTree:

@@ -238,6 +238,32 @@ def test_cuda_flash_softcap_at_grok_group(cuda_device, dtype):
                                          else {"tensor_core": 0, "cuda_core": 2})
 
 
+# (B, H, KV, S): whisper-large-v3's decoder prefill (MHA, 20 heads of 64,
+# prompt 224 = 128 + 96: a partial last tile) and internvl2-1b's (14 over 2
+# kv heads, G = 7, 256 patches + 768 tokens).
+D64_SERVE_SHAPES = [(4, 20, 20, 224), (4, 14, 2, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", D64_SERVE_SHAPES, ids=["whisper", "internvl2"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_at_d64_serve_shapes(cuda_device, dtype, shape):
+    """Causal flash at the two D = 64 prefill shapes of the encoder-decoder
+    and VLM serve paths against ``ref.attention_ref``; bf16 on the tensor
+    cores, fp32 on the CUDA cores."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    b, h, kv, s = shape
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    q, k, v = (torch.randn(dims, generator=g, device=cuda_device).to(dt)
+               for dims in ((b, h, s, 64), (b, kv, s, 64), (b, kv, s, 64)))
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v)
+    torch.testing.assert_close(got, tref.attention_ref(q, k, v), **TOL[dtype])
+    assert ops.flash_path_launches() == ({"tensor_core": 1, "cuda_core": 0} if dtype == "bfloat16"
+                                         else {"tensor_core": 0, "cuda_core": 1})
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["deepseek_v3_671b", "grok_1_314b"])
 def test_cuda_moe_matches_cpu_with_drops(cuda_device, arch):

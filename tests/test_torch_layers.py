@@ -53,7 +53,8 @@ def init_both(init_fn_jax, seed=0):
 
 
 @pytest.mark.parametrize("arch", ["qwen3_8b", "recurrentgemma_9b", "xlstm_125m", "starcoder2_3b", "command_r_35b",
-                                  "gemma3_1b", "grok_1_314b", "deepseek_v3_671b"])
+                                  "gemma3_1b", "grok_1_314b", "deepseek_v3_671b", "whisper_large_v3",
+                                  "internvl2_1b"])
 @pytest.mark.parametrize("which", ["get_config", "get_reduced"])
 def test_config_copy_matches_jax(which, arch):
     want = dataclasses.asdict(getattr(jcfgs, which)(arch))
@@ -64,10 +65,13 @@ def test_config_copy_matches_jax(which, arch):
 
 
 def test_unported_arch_raises():
-    with pytest.raises(KeyError):
-        tcfgs.get_config("whisper_large_v3")
+    """An arch outside the registry raises; the registry is the JAX
+    package's, whisper-large-v3 and internvl2-1b included."""
     with pytest.raises(KeyError):
         tcfgs.get_config("no_such_arch")
+    assert tcfgs.ARCH_IDS == jcfgs.ARCH_IDS
+    assert tcfgs.get_config("whisper_large_v3").encdec.n_encoder_layers == 32
+    assert tcfgs.get_config("internvl2_1b").vlm.n_patches == 256
 
 
 @pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])

@@ -104,13 +104,19 @@ def test_prefill_decode_match_jax_and_full_forward(models):
 
 
 def test_unported_families_refused():
-    """The VLM and encoder-decoder families are not ported: LM refuses them
-    at construction (MoE, MLA and MTP are; tests/test_torch_families.py)."""
+    """The VLM and encoder-decoder families are ported (and MoE, MLA and MTP,
+    tests/test_torch_families.py): make_model builds an EncDec for an
+    encoder-decoder config and an LM with ``vlm_proj`` for a VLM one; only
+    an arch outside the registry is refused."""
     from repro_torch.configs.base import EncDecConfig, VLMConfig
+    from repro_torch.models.encdec import EncDec
     from repro_torch.models.lm import LM
 
     base = tcfgs.get_reduced("qwen3_8b")
-    with pytest.raises(NotImplementedError, match="vlm"):
-        LM(dataclasses.replace(base, vlm=VLMConfig()))
-    with pytest.raises(NotImplementedError, match="encdec"):
-        LM(dataclasses.replace(base, encdec=EncDecConfig()))
+    vlm = tcfgs.make_model(dataclasses.replace(base, vlm=VLMConfig(n_patches=4, patch_dim=8)))
+    assert type(vlm) is LM
+    params, axes = init_with_axes(vlm.init, 0, device="cpu")
+    assert tuple(params["vlm_proj"]["w"].shape) == (8, base.d_model) and axes["vlm_proj"]["w"] == ("embed", None)
+    assert isinstance(tcfgs.make_model(dataclasses.replace(base, encdec=EncDecConfig())), EncDec)
+    with pytest.raises(KeyError):
+        tcfgs.make_model(tcfgs.get_reduced("no_such_arch"))

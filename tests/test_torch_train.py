@@ -26,7 +26,6 @@ from repro.launch.train import run_training as jax_run_training
 from repro.optim import adamw as jadamw
 from repro.runtime import CheckpointManager as JCheckpointManager
 import repro_torch.configs as tcfgs
-from repro_torch.configs.base import EncDecConfig
 from repro_torch import tree as T
 from repro_torch.core import TwoLevelStore as TStore
 from repro_torch.kernels import ops
@@ -206,12 +205,29 @@ def test_accum_matches_full_batch(starcoder):
 @pytest.mark.parametrize("cfg_fn", [
     lambda: tcfgs.get_reduced("xlstm_125m"),
     lambda: tcfgs.get_reduced("recurrentgemma_9b"),
-    lambda: dataclasses.replace(tcfgs.get_reduced("starcoder2_3b"), encdec=EncDecConfig()),
+    lambda: dataclasses.replace(tcfgs.get_reduced("whisper_large_v3"), dtype="float32"),
 ], ids=["xlstm", "recurrentgemma", "encdec"])
 def test_unported_training_branches_raise(cfg_fn):
+    """Recurrent training is refused; the encoder-decoder trains: its loss
+    over a batch with frames is finite and gives every leaf a gradient."""
     cfg = cfg_fn()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_loss_fn(None, cfg)
+    if cfg.encdec is None:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tsteps.make_loss_fn(None, cfg)
+        return
+    from repro_torch.nn.module import init_with_axes
+
+    model = tcfgs.make_model(cfg)
+    params = T.tree_map(lambda p: p.requires_grad_(), init_with_axes(model.init, 0, device="cpu")[0])
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 9)))
+    frames = torch.from_numpy(rng.normal(size=(2, cfg.encdec.n_frames, cfg.d_model)).astype(np.float32))
+    loss, metrics = tsteps.make_loss_fn(model, cfg)(params, {"frames": frames, "inputs": toks[:, :-1],
+                                                             "labels": toks[:, 1:]})
+    loss.backward()
+    assert bool(torch.isfinite(loss)) and set(metrics) == {"ce"}
+    for path, p in T.flatten_with_path(params):
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()) and bool(p.grad.abs().sum() > 0), path
 
 
 # ------------------------------------------------------- the kernel-op guard
