@@ -84,7 +84,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                  and prefill logits agree within 5e-3
 12. train        starcoder2-3b at full width (d_model 3072, 24/2 heads, d_ff
                  12288, vocab 49152), cut to 2 of its 30 layers, bf16 compute
-                 and fp32 masters, through ``repro_torch.launch.train.run_training``
+                 and fp32 masters, ``remat="full"`` as published (each layer
+                 recomputed in the backward), through ``repro_torch.launch.train.run_training``
                  (batch 8 x seq 1024, 8 steps, sync checkpoints every 4 into a
                  ``TwoLevelStore`` under build/): an uninterrupted run, then one
                  that fails at step 6 and restores step 4 (losses and final
@@ -126,17 +127,38 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                  the tiered ones at G=2) in fp32: prefill + 4 decode steps on
                  the card against the CPU, logits within 1e-4 relative and
                  the same tokens a step
-13e. train_check_families  reduced deepseek (MoE aux + MTP), grok, whisper
-                 and internvl2 in fp32: 4 train steps on the card against the
-                 CPU (step 1 within 1e-5, all within 1e-4 relative)
+13e. train_check_families  reduced deepseek (MoE aux + MTP), grok, whisper,
+                 internvl2, recurrentgemma and xlstm in fp32: 4 train steps on
+                 the card against the CPU (step 1 within 1e-5, all within 1e-4
+                 relative)
+13f. train_recurrentgemma  recurrentgemma-9b at full width (d_model 4096,
+                 lru 4096, 16/1 heads of 256, d_ff 12288, vocab 256,000), cut
+                 to one period of 3 of its 38 layers (rec, rec, local attn),
+                 ``remat="full"``, bf16 compute and fp32 masters, through
+                 ``run_training`` (batch 2 x 1024, 4 steps, no checkpoint):
+                 step s, tokens/s, model TFLOP/s, peak bytes, no kernel
+                 launched; then one step profiled
+13g. train_xlstm  xlstm-125m at full size (12 layers), ``remat="full"``,
+                 batch 16 x 64 (at 256 steps the full-width sLSTM's
+                 gradient overflows fp32, in the JAX package too), 8 steps, sync saves every 4 through host 1's
+                 shard of a ``DistributedStore`` under build/ (as the CLI's
+                 ``--distributed`` opens it): an uninterrupted run, then one
+                 that fails at step 6 and restores step 4 (losses and params
+                 equal at rtol 1e-5 / atol 1e-6); the shard's stats, save
+                 MB/s, restore s, step s, peak bytes, no kernel launched
+13h. compress    ``topk_compress_with_ef`` at ratio 0.01 over a full xlstm-125m
+                 gradient tree drawn on the CPU, 3 rounds with error feedback
+                 on the card and on the CPU: equal bit for bit; elements sent,
+                 ms a round
 14. phase_seconds  each phase's wall seconds, and the total from the build on
 15. kernels      one entry per kernel: launches in the serve phases that run
                  it, max error, times, bound
 
 Each serve phase zeroes the kernels' launch counts just before it serves and
-reads them just after, and asserts them (``train`` too: it launches none), and that every bf16 flash launch
+reads them just after, and asserts them (the training phases too: they launch none), and that every bf16 flash launch
 took the tensor-core kernel (serve_sessions: before each of its two runs).  Every phase runs, at the
-configs' full depth but train (2 of 30 layers), serve_grok and serve_deepseek (named above).  The nvidia-smi line comes
+configs' full depth but train (2 of 30 layers), train_recurrentgemma (3 of 38), serve_grok and serve_deepseek
+(named above).  The nvidia-smi line comes
 first; the last line is the contract line ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it, as does a machine without CUDA or a
 directory without the repository's sources.
@@ -1537,10 +1559,11 @@ def serve_check_families_phase(record: dict) -> None:
 
 
 def train_check_families_phase(record: dict) -> None:
-    """The training step of the MoE, MLA, encoder-decoder and VLM families
-    on the card against the same steps on the CPU: reduced deepseek (MoE
-    aux + MTP), grok, whisper (with frames) and internvl2 (with patches) in
-    fp32, TF32 off, the same initial params (drawn on the CPU) and 4
+    """The training step of the MoE, MLA, encoder-decoder, VLM and recurrent
+    families on the card against the same steps on the CPU: reduced
+    deepseek (MoE aux + MTP), grok, whisper (with frames), internvl2 (with
+    patches), recurrentgemma and xlstm (their plain scans) in fp32, TF32
+    off, the same initial params (drawn on the CPU) and 4
     batches of 4 x 64 (and their frames or patches, drawn with them); step
     1's loss within 1e-5 relative, every step's within 1e-4; ce, moe_aux
     and mtp_ce printed; no kernel launched."""
@@ -1555,7 +1578,8 @@ def train_check_families_phase(record: dict) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = []
-    for arch in ("deepseek_v3_671b", "grok_1_314b", "whisper_large_v3", "internvl2_1b"):
+    for arch in ("deepseek_v3_671b", "grok_1_314b", "whisper_large_v3", "internvl2_1b", "recurrentgemma_9b",
+                 "xlstm_125m"):
         cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
         model = make_model(cfg)
         opt = AdamW(learning_rate=1e-3)
@@ -1703,6 +1727,221 @@ def train_phase(record: dict, out_dir: Path | None) -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
+
+
+RECURRENTGEMMA_TRAIN_LAYERS = 3  # one period (rec, rec, local attn) of 38: 1.7 B params at 16 B each is ~27 GB
+
+
+def train_recurrentgemma_phase(record: dict, out_dir: Path | None) -> None:
+    """recurrentgemma-9b at full width, cut to one period of 3 layers, as
+    published (``remat="full"``, bf16 compute, fp32 masters, the plain
+    attention and RG-LRU scan), through ``run_training`` (batch 2 x seq
+    1024, 4 steps, no checkpoint: one would be ~20 GB) over a
+    ``TwoLevelStore`` under build/; step s, tokens/s, model TFLOP/s, peak
+    bytes, no kernel launched; then one step profiled."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config, make_model
+    from repro_torch.core import TwoLevelStore
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import run_training
+    from repro_torch.optim.adamw import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, steps = 2, 1024, 4
+    cfg = dataclasses.replace(get_config("recurrentgemma_9b"), n_layers=RECURRENTGEMMA_TRAIN_LAYERS)
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="train_rg_", dir=ROOT / "build"))
+    stamps: list[float] = []
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with TwoLevelStore(str(root), mem_capacity_bytes=256 * 2**20, block_bytes=4 * 2**20) as st:
+            res = run_training(cfg, st, total_steps=steps, global_batch=B, seq_len=S, ckpt_every=steps + 1,
+                               ckpt_mode="sync", device="cuda", on_step=lambda i, m: stamps.append(time.perf_counter()))
+        run_s = time.perf_counter() - t0
+        launches = ops.launches()
+        peak = torch.cuda.max_memory_allocated()
+        intervals = [stamps[i] - stamps[i - 1] for i in range(1, steps)]
+        step_s = sorted(intervals)[len(intervals) // 2]
+        n_params = sum(p.numel() for p in tree.leaves(res.state["params"]))
+        if any(launches.values()) or not all(map(math.isfinite, res.losses)) or len(res.losses) != steps:
+            raise AssertionError(f"train_recurrentgemma: launches {launches}, losses {res.losses}")
+        tokens = B * S
+        row = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, lru_width=cfg.recurrent.lru_width,
+                   d_ff=cfg.d_ff, vocab=cfg.vocab, remat=cfg.remat, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+                   params=n_params, batch=B, seq=S, steps=steps, losses=res.losses, step_s=step_s,
+                   step_intervals_s=intervals, tokens_per_s=tokens / step_s,
+                   model_tflops=6 * n_params * tokens / step_s / 1e12, peak_device_bytes=peak, run_s=run_s,
+                   data_stall_s=res.stalls["data_stall_total_s"], launches=launches)
+        emit("train_recurrentgemma", **row)
+
+        step = make_train_step(make_model(cfg), cfg, AdamW(learning_rate=1e-4))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen, device="cuda")
+        batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+        box = {"state": res.state}
+        del res
+
+        def one_step():
+            box["state"], _ = step(box["state"], batch)
+
+        one_step()  # warm
+        table = out_dir / "profile_train_recurrentgemma_1_step.txt" if out_dir else None
+        prof = profile_breakdown(one_step, table, top=8)
+        emit("train_recurrentgemma_profile", part="1_step", **prof)
+        del box, batch
+        record["train_recurrentgemma"] = dict(row, profile=prof)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+XLSTM_TRAIN_SEQ = 64  # the sLSTM's gradient grows ~1.45x a step back in time at full width: NaN by 256
+
+
+def train_xlstm_phase(record: dict) -> None:
+    """xlstm-125m at full size (12 layers), ``remat="full"``, bf16 compute,
+    through ``run_training`` (batch 16 x seq XLSTM_TRAIN_SEQ, 8 steps, sync
+    saves every 4) over host 1's shard of a ``DistributedStore`` under build/, opened as
+    the training CLI opens it with ``--distributed``: an uninterrupted run,
+    then one that loses its host at step 6 and restores step 4 (losses and
+    final params equal to the uninterrupted run's at rtol 1e-5 / atol 1e-6);
+    the shard's stats, save MB/s, restore s, step s, peak bytes, no kernel
+    launched."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import DistributedStore
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run_training
+    from repro_torch.runtime.failure import FailureInjector
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, steps, every, fail_at = 16, XLSTM_TRAIN_SEQ, 8, 4, 6
+    cfg = get_config("xlstm_125m")
+    store_kw = dict(mem_capacity_bytes=256 * 2**20, block_bytes=4 * 2**20)  # the training CLI's store
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="train_xlstm_", dir=ROOT / "build"))
+    stamps: list[float] = []
+    run_kw = dict(total_steps=steps, global_batch=B, seq_len=S, ckpt_every=every, ckpt_mode="sync", device="cuda")
+
+    def run(sub: str, **kw):
+        dstore = DistributedStore(1, str(root / sub), lease_ttl_s=5.0, **store_kw)
+        try:
+            return run_training(cfg, dstore.store, **run_kw, **kw), dataclasses.asdict(dstore.stats)
+        finally:
+            dstore.close()
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        clean, dstats = run("clean", on_step=lambda i, m: stamps.append(time.perf_counter()))
+        clean_s = time.perf_counter() - t0
+        launches = ops.launches()
+        peak = torch.cuda.max_memory_allocated()
+        intervals = [stamps[i] - stamps[i - 1] for i in range(1, steps) if i % every]
+        step_s = sorted(intervals)[len(intervals) // 2]
+        ckpt_bytes = sum(x.numel() * x.element_size() if isinstance(x, torch.Tensor) else x.nbytes
+                         for x in tree.leaves(clean.state))
+        n_params = sum(p.numel() for p in tree.leaves(clean.state["params"]))
+
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        failed, dstats_failed = run("failed", injector=FailureInjector([fail_at]))
+        failed_s = time.perf_counter() - t0
+        launches_failed = ops.launches()
+        if any(launches.values()) or any(launches_failed.values()):
+            raise AssertionError(f"training launched kernels: {launches} / {launches_failed}")
+        if failed.restarts != 1 or len(failed.losses) != steps + fail_at - every:
+            raise AssertionError(f"restart: {failed.restarts} restarts, {len(failed.losses)} losses")
+        loss_apart = max(abs(a - b) / abs(b) for a, b in zip(failed.losses[-(steps - every):],
+                                                            clean.losses[-(steps - every):]))
+        apart = {tree.keystr(k): float((a - b).abs().max()) for (k, a), b in
+                 zip(tree.flatten_with_path(failed.state["params"]), tree.leaves(clean.state["params"]))}
+        worst = max(apart, key=apart.get)
+        params_close = all(torch.allclose(a, b, rtol=1e-5, atol=1e-6) for a, b in
+                           zip(tree.leaves(failed.state["params"]), tree.leaves(clean.state["params"])))
+        if not params_close or loss_apart > 1e-5 or not all(map(math.isfinite, clean.losses)):
+            raise AssertionError(f"train_xlstm: the restored run's params {'equal' if params_close else 'differ'} "
+                                 f"(largest gap {apart[worst]} at {worst}); losses {failed.losses} vs "
+                                 f"{clean.losses} ({loss_apart} apart)")
+        param_apart = apart[worst]
+        stalls = clean.stalls
+        tokens = B * S
+        row = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab, remat=cfg.remat,
+                   dtype=cfg.dtype, param_dtype=cfg.param_dtype, params=n_params, batch=B, seq=S, steps=steps,
+                   ckpt_every=every, losses=clean.losses, step_s=step_s, step_intervals_s=intervals,
+                   tokens_per_s=tokens / step_s, model_tflops=6 * n_params * tokens / step_s / 1e12,
+                   peak_device_bytes=peak, run_s=clean_s, failed_run_s=failed_s,
+                   ckpt_stall_s=stalls["ckpt_stall_total_s"], save_critical_s=stalls["ckpt_save_critical_s"],
+                   saves=steps // every, ckpt_bytes=ckpt_bytes,
+                   save_mb_per_s=steps // every * ckpt_bytes / stalls["ckpt_save_critical_s"] / 1e6,
+                   restore_s=failed.stalls["ckpt_restore_total_s"], restarts=failed.restarts,
+                   restored_losses=failed.losses, restored_losses_apart=loss_apart,
+                   restored_params_max_abs_apart=param_apart, dstore=dstats, dstore_failed=dstats_failed,
+                   launches=launches)
+        emit("train_xlstm", **row)
+        record["train_xlstm"] = row
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def compress_phase(record: dict) -> None:
+    """``topk_compress_with_ef`` at ratio 0.01 over a full xlstm-125m
+    gradient tree (drawn once from seed 0 on the CPU), 3 rounds with error
+    feedback on the card and on the CPU: sent values and residuals equal bit
+    for bit (the k-th value is exact); elements sent and ms a round."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config, make_model
+    from repro_torch.nn.module import init_with_axes
+    from repro_torch.optim import topk_compress_with_ef
+
+    ratio, rounds = 0.01, 3
+    model = make_model(get_config("xlstm_125m"))
+    gen = torch.Generator().manual_seed(0)
+    grads = tree.tree_map(lambda p: torch.randn(p.shape, generator=gen) * 1e-3,
+                          init_with_axes(model.init, 0, device="cpu")[0])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        g = tree.tree_map(lambda t: t.to(dev), grads)
+        ef, sent_rounds, ms = None, [], []
+        for _ in range(rounds):
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sent, ef, stats = topk_compress_with_ef(g, ef, ratio)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            sent_rounds.append((tree.leaves(sent), tree.leaves(ef)))
+        out[dev] = dict(rounds=sent_rounds, ms=ms, stats=stats)
+    equal = all(torch.equal(a.cpu(), b) for (sc, ec), (sp, ep) in zip(out["cuda"]["rounds"], out["cpu"]["rounds"])
+                for a, b in zip(sc + ec, sp + ep))
+    masks = [sum(int(torch.count_nonzero(t)) for t in sc) for sc, _ in out["cuda"]["rounds"]]
+    row = dict(arch="xlstm-125m", ratio=ratio, rounds=rounds, leaves=len(tree.leaves(grads)),
+               elements_total=out["cuda"]["stats"]["elements_total"],
+               elements_sent=out["cuda"]["stats"]["elements_sent"], mask_elements_by_round=masks,
+               cuda_ms_by_round=out["cuda"]["ms"], cpu_ms_by_round=out["cpu"]["ms"],
+               cuda_equals_cpu_bitwise=equal)
+    emit("compress", **row)
+    if not equal or out["cuda"]["stats"] != out["cpu"]["stats"]:
+        raise AssertionError("compression on the card differs from the CPU's")
+    record["compress"] = row
+    del out
+    torch.cuda.empty_cache()
 
 
 def time_head(rows: int, d: int, vocab: int) -> dict:
@@ -1943,6 +2182,9 @@ def main() -> int:
         ("train", lambda: train_phase(record, out_dir)),
         ("train_check", lambda: train_check_phase(record)),
         ("train_check_families", lambda: train_check_families_phase(record)),
+        ("train_recurrentgemma", lambda: train_recurrentgemma_phase(record, out_dir)),
+        ("train_xlstm", lambda: train_xlstm_phase(record)),
+        ("compress", lambda: compress_phase(record)),
     ]
     seconds = {}
     for name, run in phases:

@@ -12,11 +12,21 @@ them imports ``torch``; the store is host I/O on bytes and numpy.
 * :mod:`repro_torch.core.tiers`    — MemoryTier (Tachyon) / PFSTier (OrangeFS).
 * :mod:`repro_torch.core.store`    — TwoLevelStore with the 3+3 I/O modes (Fig. 4).
 * :mod:`repro_torch.core.arbiter`  — the elastic memory arbiter.
-
-``dstore`` (the distributed store) is not copied yet.
+* :mod:`repro_torch.core.dstore`   — DistributedStore: per-host shards, leases, peers
+  (its retries and circuit breakers in :mod:`repro_torch.core.resilience`).
 """
 
 from repro_torch.core.cluster import ClusterSpec, paper_average_cluster, palmetto_cluster, tpu_v5e_pod
+from repro_torch.core.dstore import (
+    DistributedStore,
+    DStoreStats,
+    GossipBoard,
+    HostRegistry,
+    LeaseLost,
+    LeaseTable,
+    NotOwner,
+    PeerUnreachable,
+)
 from repro_torch.core.layout import BlockLayout, StripeLayout, TwoLevelLayout, paper_layout
 from repro_torch.core.sched import ControllerConfig, IOController, StreamClass
 from repro_torch.core.store import (
@@ -43,9 +53,17 @@ __all__ = [
     "CapacityExceeded",
     "ClusterSpec",
     "ControllerConfig",
+    "DStoreStats",
+    "DistributedStore",
     "EvictionPolicy",
     "FlushError",
+    "GossipBoard",
+    "HostRegistry",
     "IOController",
+    "LeaseLost",
+    "LeaseTable",
+    "NotOwner",
+    "PeerUnreachable",
     "crc32_chunked",
     "IntegrityError",
     "MemoryTier",

@@ -143,14 +143,20 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def no_backward(op: str, *tensors) -> None:
-    """Raise if autograd would track any of ``tensors`` (tensors, or lists
-    and tuples of them): a kernel's output has no ``grad_fn``, so handing it
-    back would silently drop the gradient of everything upstream."""
+def tracked(*tensors) -> bool:
+    """Whether autograd would track any of ``tensors`` (tensors, or lists and
+    tuples of them): grad is enabled and one of them requires it."""
     if not torch.is_grad_enabled():
-        return
+        return False
     flat = [t for x in tensors for t in (x if isinstance(x, (list, tuple)) else (x,))]
-    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in flat):
+    return any(isinstance(t, torch.Tensor) and t.requires_grad for t in flat)
+
+
+def no_backward(op: str, *tensors) -> None:
+    """Raise if autograd would track any of ``tensors``: a kernel's output
+    has no ``grad_fn``, so handing it back would silently drop the gradient
+    of everything upstream."""
+    if tracked(*tensors):
         raise RuntimeError(
             f"{op}: the CUDA kernel has no backward, and an input requires grad; "
             "call it under torch.no_grad(), or train through the plain attention (attn_impl='xla')"

@@ -24,7 +24,9 @@ two-level ``TieredKVCache`` (device hot ring of W tokens + paged pinned host
 cold tier); ``--kv-page`` sets the cold staging page.  ``--store-root DIR``
 adds the durable third level: completed cold pages persist through a
 ``repro_torch.core.TwoLevelStore`` at DIR (memory tier in front of a
-striped file tier), and the run prints the pages and bytes persisted.
+striped file tier), and the run prints the pages and bytes persisted;
+with ``--distributed`` it joins DIR as host ``--host-id`` of a
+``DistributedStore`` and the pages ride that shard's store.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --reduced \
         --batch 2 --prompt-len 48 --tokens 24 --kv-window 32 --kv-page 16 \
@@ -176,6 +178,10 @@ def main() -> None:
                     help="prefill: 'flash' (default) runs the kernels, 'xla' their plain versions")
     ap.add_argument("--store-root", default="",
                     help="with --kv-window: persist cold KV pages through a two-level store at this root")
+    ap.add_argument("--distributed", action="store_true",
+                    help="with --store-root: join it as a DistributedStore host shard")
+    ap.add_argument("--host-id", type=int, default=1,
+                    help="host id for --distributed (unique per process)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args()
@@ -193,8 +199,13 @@ def main() -> None:
     if args.sessions > 0 and args.kv_window <= 0:
         raise SystemExit("--sessions requires --kv-window")
     if args.kv_window > 0:
-        store = None
-        if args.store_root:
+        store = dstore = None
+        if args.store_root and args.distributed:
+            from repro_torch.core import DistributedStore
+
+            dstore = DistributedStore(args.host_id, args.store_root)
+            store = dstore.store  # the KV pages ride this shard's write path
+        elif args.store_root:
             from repro_torch.core import TwoLevelStore
 
             store = TwoLevelStore(args.store_root)
@@ -225,7 +236,7 @@ def main() -> None:
             )
         finally:
             if store is not None:
-                store.close()
+                (dstore or store).close()
     else:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
         gen, prefill_s, decode_s = serve_loop(

@@ -54,10 +54,7 @@ def make_loss_fn(model, cfg: ArchConfig) -> Callable:
     ``batch["patches"]``), plus ``MOE_AUX_WEIGHT`` x the MoE layers'
     load-balance loss and, with the MTP head, ``MTP_WEIGHT`` x its loss at
     predicting t+2 (from every hidden state but the last and the inputs
-    shifted by one).  Recurrent training waits for its slice
-    (``ROADMAP.md``)."""
-    if cfg.recurrent is not None:
-        raise NotImplementedError(f"{cfg.name}: training with recurrent layers is not ported yet (see ROADMAP.md)")
+    shifted by one)."""
 
     def loss_fn(params: PyTree, batch: dict) -> tuple[torch.Tensor, dict]:
         if cfg.encdec is not None:

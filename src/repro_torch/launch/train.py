@@ -1,6 +1,7 @@
 """Resilient training driver of the port: the paper's storage system under a
 real loop, on the card unless ``--device cpu`` is given — the port of
-``repro/launch/train.py`` (the decoder LMs but the recurrent ones; one device).
+``repro/launch/train.py`` (every decoder LM, the recurrent ones included; one
+device).
 
 Wiring: the token pipeline reads its shards through the ``TwoLevelStore``
 (hot shards in the memory tier, all shards durable on the PFS tier) and its
@@ -9,15 +10,21 @@ writes two-level checkpoints (sync = write mode (c), or async); a heartbeat
 watches liveness; a failure injector simulates host loss; on failure the
 driver restores the last committed checkpoint AND the exact pipeline
 cursor, then continues — the recovery path is the paper's read mode (f):
-memory tier first, PFS fallback.
+memory tier first, PFS fallback.  ``--distributed`` joins the store's root
+as one host shard of a ``DistributedStore`` (leases, peer reads, background
+reclamation) and runs the training I/O through that shard's local store.
 
 The checkpoints hold the state as the JAX package lays it out
 (``nn.module.to_reference_layout``), so either package resumes the other's
 run.  The attention trains through its plain path (``attn_impl="xla"``, as
-the reference does): the kernels are forward only.
+the reference does), and so do the recurrent blocks (their plain scans):
+the kernels are forward only.  ``cfg.remat`` rematerialises each period
+of layers in the backward, as the reference's ``jax.checkpoint`` does.
 
 CLI:  python -m repro_torch.launch.train --arch starcoder2-3b --steps 20 --reduced
       python -m repro_torch.launch.train --arch starcoder2-3b --reduced --steps 4 --device cpu
+      python -m repro_torch.launch.train --arch xlstm-125m --reduced --steps 4 --device cpu \
+          --store /tmp/s --distributed --host-id 0
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_reduced, make_model
+from repro_torch.core.dstore import DistributedStore
 from repro_torch.core.store import TwoLevelStore
 from repro_torch.data.pipeline import PipelineState, ShardedLoader, SyntheticCorpus
 from repro_torch.launch.steps import init_state, make_train_step
@@ -230,9 +238,16 @@ def main() -> None:
                     help="root of the two-level store (a rerun on the same root resumes its checkpoint)")
     ap.add_argument("--ckpt-mode", default="async", choices=["sync", "async", "memory_only"])
     ap.add_argument("--fail-at", type=int, nargs="*", default=[])
+    ap.add_argument("--distributed", action="store_true",
+                    help="join --store as a DistributedStore host shard (leases, peer "
+                         "reads, background reclamation)")
+    ap.add_argument("--host-id", type=int, default=1,
+                    help="host id for --distributed (unique per process)")
+    ap.add_argument("--lease-ttl", type=float, default=5.0,
+                    help="heartbeat/lease ttl seconds for --distributed")
     ap.add_argument("--chaos", nargs="*", default=[], metavar="SITE:KIND[,k=v...]",
-                    help="arm chaos faults on the store's PFS tier, e.g. pfs.write_unit:delay,prob=0.2,delay_s=0.01 "
-                         "(see repro_torch.runtime.failure.ChaosInjector)")
+                    help="arm chaos faults, e.g. peer.request:delay,prob=0.2,delay_s=0.05 or "
+                         "pfs.write_unit:delay,prob=0.2,delay_s=0.01 (see repro_torch.runtime.failure.ChaosInjector)")
     ap.add_argument("--chaos-seed", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0, help="seed of a fresh run's params")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
@@ -244,7 +259,13 @@ def main() -> None:
         from repro_torch.runtime.failure import ChaosInjector
 
         chaos = ChaosInjector.from_specs(args.chaos, seed=args.chaos_seed)
-    store = TwoLevelStore(args.store, chaos=chaos, mem_capacity_bytes=256 * 2**20, block_bytes=4 * 2**20)
+    store_kw = dict(mem_capacity_bytes=256 * 2**20, block_bytes=4 * 2**20)
+    dstore = None
+    if args.distributed:
+        dstore = DistributedStore(args.host_id, args.store, lease_ttl_s=args.lease_ttl, chaos=chaos, **store_kw)
+        store = dstore.store  # training I/O runs this shard's local data path
+    else:
+        store = TwoLevelStore(args.store, chaos=chaos, **store_kw)
     try:
         res = run_training(
             cfg,
@@ -259,7 +280,7 @@ def main() -> None:
             seed=args.seed,
         )
     finally:
-        store.close()
+        (dstore or store).close()
     print(
         f"done: {res.steps_run} steps run ({res.restarts} restarts), "
         f"final loss {res.losses[-1]:.4f}" if res.losses else
@@ -271,6 +292,14 @@ def main() -> None:
         f"(save critical path {res.stalls['ckpt_save_critical_s']:.2f}s), "
         f"restore {res.stalls['ckpt_restore_total_s']:.2f}s"
     )
+    if dstore is not None:
+        st = dstore.stats
+        print(
+            f"dstore[h{dstore.host_id}]: {st.lease_claims} leases "
+            f"({st.takeovers} takeovers, {st.reclaimed_files} reclaimed in "
+            f"{st.reclaim_ticks} ticks), {st.peer_retries} peer retries, "
+            f"{st.peer_reconnects} reconnects, {st.cold_fallback_reads} cold fallbacks"
+        )
     if chaos is not None:
         print(f"chaos: {chaos.fired_count()} faults fired ({len(chaos.history)} events)")
 

@@ -27,6 +27,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.lm import rematerialise
 from repro_torch.nn import layers as L
 from repro_torch.nn.module import Scope
 
@@ -92,20 +93,25 @@ class EncDec:
 
     # --------------------------------------------------------------- encoder
 
-    def encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
-        """frames: (B, n_frames, d_model) precomputed conv-frontend output."""
+    def encode(self, params: Params, frames: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """frames: (B, n_frames, d_model) precomputed conv-frontend output;
+        ``remat`` rematerialises each layer (training)."""
         cfg = self.cfg
         dt = L.cdtype(cfg)
         x = frames.to(dt) + _sinusoids(frames.shape[1], cfg.d_model, frames.device).to(dt)[None]
         enc = params["encoder"]
+        layer = rematerialise(self._enc_layer, "full") if remat else self._enc_layer
         for i in range(cfg.encdec.n_encoder_layers):
-            p = enc[f"prefix_{i}"]
-            # Bidirectional: cross-attention of the sequence onto itself.
-            h = L.norm_apply(p["pre_norm"], x, cfg)
-            a, _ = L.attention_apply(p["attn"], h, cfg, mode="train", use_rope=False, cross_kv=_kv(p["attn"], h))
-            x = x + a
-            x = x + L.mlp_apply(p["ffn"], L.norm_apply(p["pre_ffn_norm"], x, cfg), cfg)
+            x = layer(enc[f"prefix_{i}"], x)
         return L.norm_apply(enc["final_norm"], x, cfg)
+
+    def _enc_layer(self, p: Params, x: torch.Tensor) -> torch.Tensor:
+        # Bidirectional: cross-attention of the sequence onto itself.
+        cfg = self.cfg
+        h = L.norm_apply(p["pre_norm"], x, cfg)
+        a, _ = L.attention_apply(p["attn"], h, cfg, mode="train", use_rope=False, cross_kv=_kv(p["attn"], h))
+        x = x + a
+        return x + L.mlp_apply(p["ffn"], L.norm_apply(p["pre_ffn_norm"], x, cfg), cfg)
 
     # ------------------------------------------------------------- cross kv
 
@@ -121,24 +127,30 @@ class EncDec:
     # --------------------------------------------------------------- decoder
 
     def _decode_stack(self, params: Params, x: torch.Tensor, caches: dict | None, cross: dict, mode: str):
+        """The decoder layers; in training with ``cfg.remat`` set, each one
+        rematerialised (the reference wraps its decoder body in
+        ``jax.checkpoint`` for any ``remat`` but ``"none"``)."""
         cfg = self.cfg
         dec = params["decoder"]
+        remat = mode == "train" and cfg.remat != "none"
+        layer = rematerialise(self._dec_layer, "full") if remat else self._dec_layer
         new_caches = {}
         for i in range(cfg.n_layers):
             key = f"prefix_{i}"
-            p = dec[key]
-            h = L.norm_apply(p["pre_self_norm"], x, cfg)
-            sa, new_caches[key] = L.attention_apply(
-                p["self_attn"], h, cfg, cache=caches[key] if caches is not None else None, mode=mode,
-                use_rope=False)
-            x = x + sa
-            h2 = L.norm_apply(p["pre_cross_norm"], x, cfg)
-            ca, _ = L.attention_apply(p["cross_attn"], h2, cfg, mode="train", use_rope=False,
-                                      cross_kv=(cross[key]["k"], cross[key]["v"]))
-            x = x + ca
-            x = x + L.mlp_apply(p["ffn"], L.norm_apply(p["pre_ffn_norm"], x, cfg), cfg)
+            x, new_caches[key] = layer(dec[key], x, caches[key] if caches is not None else None, cross[key], mode)
         x = L.norm_apply(dec["final_norm"], x, cfg)
         return x, (new_caches if caches is not None else None)
+
+    def _dec_layer(self, p: Params, x: torch.Tensor, cache: dict | None, cross: dict, mode: str):
+        cfg = self.cfg
+        h = L.norm_apply(p["pre_self_norm"], x, cfg)
+        sa, new_cache = L.attention_apply(p["self_attn"], h, cfg, cache=cache, mode=mode, use_rope=False)
+        x = x + sa
+        h2 = L.norm_apply(p["pre_cross_norm"], x, cfg)
+        ca, _ = L.attention_apply(p["cross_attn"], h2, cfg, mode="train", use_rope=False,
+                                  cross_kv=(cross["k"], cross["v"]))
+        x = x + ca
+        return x + L.mlp_apply(p["ffn"], L.norm_apply(p["pre_ffn_norm"], x, cfg), cfg), new_cache
 
     def _embed_dec(self, params: Params, tokens: torch.Tensor, start: int) -> torch.Tensor:
         x = L.embedding_apply(params["decoder"]["embed"], tokens, self.cfg)
@@ -156,8 +168,9 @@ class EncDec:
     def train_logits(self, params: Params, frames: torch.Tensor,
                      tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Decoder logits (fp32) over ``tokens`` given ``frames``, and a zero
-        aux loss. Differentiable, as ``LM.train_logits``."""
-        cross = self.cross_kv(params, self.encode(params, frames))
+        aux loss. Differentiable, as ``LM.train_logits``; ``cfg.remat``
+        rematerialises each encoder and decoder layer."""
+        cross = self.cross_kv(params, self.encode(params, frames, remat=self.cfg.remat != "none"))
         x, _ = self._decode_stack(params, self._embed_dec(params, tokens, 0), None, cross, "train")
         return self._logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -12,6 +12,8 @@ eagerly and has no ``lax.scan``, and the two-level cache is host state that
 could not ride a scan carry anyway.  ``nn.module.params_from_jax`` unrolls a
 scanned JAX tree into the same keys, and ``nn.module.to_reference_layout``
 stacks them back (``stack_plan``) for a checkpoint either package restores.
+In training, ``cfg.remat`` rematerialises the layers the reference's
+``jax.checkpoint`` wraps: each period of ``stack_plan`` (``rematerialise``).
 
 Three entry points (pure functions of params and caches; only the first is
 differentiable):
@@ -25,9 +27,11 @@ differentiable):
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import layers as L
@@ -95,6 +99,28 @@ def stack_plan(cfg: ArchConfig) -> tuple[list[LayerSpec], list[LayerSpec], int, 
     if not cfg.scan_layers:
         return specs, [], 0, []
     return prefix, period, n_periods, suffix
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def save_matmuls(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The selective-checkpoint policy of ``remat="dots"`` (the reference's
+    ``checkpoint_dots``): keep the matrix products' outputs, recompute the rest."""
+    return CheckpointPolicy.MUST_SAVE if op in _MATMULS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def rematerialise(fn, remat: str):
+    """``fn`` as the reference's ``jax.checkpoint`` wraps it: ``"full"`` keeps
+    only its inputs and recomputes the rest in the backward
+    (``nothing_saveable``), ``"dots"`` keeps the matrix products' outputs too;
+    ``"none"`` gives ``fn`` back."""
+    if remat == "none":
+        return fn
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, save_matmuls)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 _MIXER_INIT = {"gqa": L.attention_init, "mla": L.mla_init, "rglru": R.rglru_init, "mlstm": R.mlstm_init,
@@ -185,16 +211,40 @@ class LM:
         }
 
     def _run_stack(self, params: Params, x: torch.Tensor, caches: dict | None, mode: str):
-        """Every layer in turn. Returns (x, new_caches, the layers' aux losses summed)."""
-        new_caches: dict[str, Any] = {}
+        """Every layer in turn. Returns (x, new_caches, the layers' aux losses summed).
+
+        In training with ``cfg.remat`` set, each period of the reference's
+        ``stack_plan`` runs as one rematerialised body (its layers and their
+        aux losses); its unrolled prefix and suffix layers do not."""
+        cfg = self.cfg
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        if mode == "train" and cfg.remat != "none":
+            prefix, period, n_periods, _ = stack_plan(cfg)
+            first, plen = len(prefix), len(period)
+            body = rematerialise(self._run_layers, cfg.remat)
+            i = 0
+            while i < len(self.prefix):
+                periodic = first <= i < first + n_periods * plen
+                n = plen if periodic else 1
+                x, aux_total = (body if periodic else self._run_layers)(params, x, aux_total, i, n)
+                i += n
+            return x, None, aux_total
+        new_caches: dict[str, Any] = {}
         for i, spec in enumerate(self.prefix):
             key = f"prefix_{i}"
-            x, nc, aux = apply_layer(params[key], x, spec, self.cfg, caches.get(key) if caches else None, mode)
+            x, nc, aux = apply_layer(params[key], x, spec, cfg, caches.get(key) if caches else None, mode)
             aux_total = aux_total + aux
             if caches is not None:
                 new_caches[key] = nc
         return x, (new_caches if caches is not None else None), aux_total
+
+    def _run_layers(self, params: Params, x: torch.Tensor, aux_total: torch.Tensor, start: int,
+                    n: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Training layers ``start .. start+n-1``: (x, aux_total) after them."""
+        for i in range(start, start + n):
+            x, _, aux = apply_layer(params[f"prefix_{i}"], x, self.prefix[i], self.cfg, None, "train")
+            aux_total = aux_total + aux
+        return x, aux_total
 
     def _embed(self, params: Params, tokens: torch.Tensor, patches: torch.Tensor | None) -> torch.Tensor:
         x = L.embedding_apply(params["embed"], tokens, self.cfg)

@@ -12,9 +12,12 @@ recurrences go through ``kernels.ops`` when ``cfg.attn_impl == "flash"``:
 the Hopper kernels on a CUDA tensor (``csrc/rglru.cu``, ``csrc/mlstm.cu``,
 the ports of the Pallas kernels written for these recurrences), their plain
 versions on a CPU tensor.  With ``"xla"`` they run the plain versions on
-any device, as ``"xla"`` runs plain masked-softmax attention.  One decode
-step is plain arithmetic either way (``ref.mlstm_step`` is the JAX model's
-``_mlstm_cell``), and sLSTM (no Pallas kernel) is a plain step loop.
+any device, as ``"xla"`` runs plain masked-softmax attention.  Under
+autograd (training) they run the plain versions whatever ``attn_impl``
+says: the kernels are forward only, and the reference trains through its
+own scans.  One decode step is plain arithmetic either way
+(``ref.mlstm_step`` is the JAX model's ``_mlstm_cell``), and sLSTM (no
+Pallas kernel) is a plain step loop.
 """
 
 from __future__ import annotations
@@ -105,7 +108,7 @@ def rglru_scan(p: Params, u: torch.Tensor, h0: torch.Tensor | None, cfg: ArchCon
         gated[:, 0, :] += a[:, 0, :] * h0.float()
     if u.shape[1] == 1:
         h = gated  # one step: a h_0 + b, folded above
-    elif cfg.attn_impl == "flash":
+    elif cfg.attn_impl == "flash" and not ops.tracked(a, gated):
         h = ops.rglru_scan(a, gated)
     else:
         h = ref.rglru_ref(a, gated)
@@ -220,7 +223,7 @@ def mlstm_block_apply(
             carry = tuple(mlstm_make_state(cfg, b, x.device)[key] for key in ("C", "n", "m"))
         carry, h = ref.mlstm_step(carry, q[:, :, 0], k[:, :, 0], v[:, :, 0], ip[:, :, 0], fp[:, :, 0])
         h = h[:, :, None]
-    elif cfg.attn_impl == "flash":
+    elif cfg.attn_impl == "flash" and not ops.tracked(q, k, v, ip, fp, carry):
         h, carry = ops.mlstm_chunkwise(q, k, v, ip, fp, carry)
     else:
         h, carry = ref.mlstm_ref(q, k, v, ip, fp, carry)

@@ -670,3 +670,92 @@ def test_cuda_train_step_matches_cpu(cuda_device):
     for a, b in zip(tree.leaves(new_gpu["params"]), tree.leaves(new_cpu["params"])):
         assert float((a.cpu() - b).abs().max()) <= 2.0 * 1e-3 * (1 + 1e-3)
     assert int(new_gpu["step"]) == int(new_gpu["opt"]["count"]) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "xlstm_125m"])
+def test_cuda_recurrent_train_step_matches_cpu(cuda_device, arch):
+    """The gradients of a reduced recurrent arch (fp32, TF32 off,
+    ``remat="full"``) on the card against the port's CPU gradients from the
+    same params and batch: the plain scans under autograd, recomputed by
+    the rematerialised periods, with no kernel launched; the loss within
+    2e-5 and every gradient within 2e-5 of the leaf's largest (1e-9
+    absolute for leaves of rounding noise, as sLSTM's input-gate bias)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.configs import get_reduced, make_model
+    from repro_torch.launch.steps import init_state, make_loss_fn
+    from repro_torch.optim.adamw import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32", remat="full")
+    model = make_model(cfg)
+    cpu, _ = init_state(model, cfg, AdamW(learning_rate=1e-3), seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (4, 33)))
+    before = ops.launches()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree.tree_map(lambda p: p.detach().to(dev).requires_grad_(), cpu["params"])
+        loss, _ = make_loss_fn(model, cfg)(params, {"inputs": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)})
+        loss.backward()
+        out[dev] = (loss.detach().cpu(), [(tree.keystr(k), p.grad.cpu()) for k, p in tree.flatten_with_path(params)])
+    assert ops.launches() == before
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=2e-5, atol=0)
+    for (name, a), (_, b) in zip(out["cuda"][1], out["cpu"][1]):
+        apart, scale = float((a - b).abs().max()), float(b.abs().max())
+        assert apart <= 2e-5 * scale + 1e-9, (name, apart, scale)
+
+
+@pytest.mark.cuda
+def test_cuda_recurrent_blocks_take_plain_scans_under_grad(cuda_device):
+    """With ``attn_impl="flash"`` the RG-LRU and mLSTM blocks launch their
+    kernels under no_grad (serving) and take the plain scans under grad
+    (training): no launch, and the gradient reaches the block's input."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced, make_model
+    from repro_torch.nn import recurrent as R
+    from repro_torch.nn.module import init_with_axes
+
+    for arch, block, op in (("recurrentgemma_9b", R.rglru_block_apply, "rglru"),
+                            ("xlstm_125m", R.mlstm_block_apply, "mlstm")):
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32", attn_impl="flash")
+        p = init_with_axes(make_model(cfg).init, 0, device=cuda_device)[0]["prefix_0"]["mixer"]
+        x = torch.randn(2, 40, cfg.d_model, device=cuda_device, requires_grad=True)
+        before = ops.launches()[op]
+        y, _ = block(p, x, cfg)
+        y.sum().backward()
+        assert ops.launches()[op] == before and x.grad is not None and bool(x.grad.abs().sum() > 0)
+        with torch.no_grad():
+            y_kernel, _ = block(p, x, cfg)
+        assert ops.launches()[op] == before + 1
+        torch.testing.assert_close(y_kernel, y.detach(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_compression_matches_cpu(cuda_device):
+    """Top-k compression with error feedback on the card equals the CPU's
+    bit for bit over 3 rounds (ties at the threshold and an all-zero leaf
+    included): the k-th value is exact, so the masks are the same."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.optim import topk_compress_with_ef
+
+    rng = np.random.default_rng(1)
+    ef = {"cpu": None, "cuda": None}
+    for _ in range(3):
+        ties = (rng.normal(size=(64, 32)) * 0.01).astype(np.float32)
+        ties.flat[rng.permutation(ties.size)[:50]] = 2.0
+        grads = {"w": torch.from_numpy(rng.normal(size=(512, 256)).astype(np.float32)), "ties": torch.from_numpy(ties),
+                 "zero": torch.zeros(9, 7), "b": torch.from_numpy(rng.normal(size=(1000,)).astype(np.float32))}
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            sent, ef[dev], stats = topk_compress_with_ef(tree.tree_map(lambda t: t.to(dev), grads), ef[dev], 0.01)
+            outs[dev] = (tree.leaves(sent), tree.leaves(ef[dev]), stats)
+        assert outs["cuda"][2] == outs["cpu"][2]
+        for a, b in zip(outs["cuda"][0] + outs["cuda"][1], outs["cpu"][0] + outs["cpu"][1]):
+            assert a.is_cuda and torch.equal(a.cpu(), b)

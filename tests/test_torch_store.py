@@ -3,8 +3,8 @@ JAX package's ``repro.core``.
 
 Each copied module is the original with only ``repro.core`` read as
 ``repro_torch.core``, so both packages write the same bytes (stripes,
-blocks, manifests, CRCs); the package exports the reference's names but the
-distributed store's; and files written through one package's store read
+blocks, manifests, CRCs, leases, the peer protocol); the package exports
+the reference's names; and files written through one package's store read
 back through the other's.
 """
 
@@ -18,7 +18,8 @@ import repro.core as jcore
 import repro_torch.core as tcore
 
 ROOT = Path(__file__).resolve().parents[1]
-MODULES = ("cluster", "iomodel", "layout", "tiers", "codec", "scrub", "sched", "arbiter", "store")
+MODULES = ("cluster", "iomodel", "layout", "tiers", "codec", "scrub", "sched", "arbiter", "store", "resilience",
+           "dstore")
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -53,8 +54,11 @@ def test_store_copies_import_only_each_other():
 
 
 def test_port_exports_the_reference_names_but_the_distributed_store():
-    want = {n for n in jcore.__all__ if getattr(getattr(jcore, n), "__module__", "") != "repro.core.dstore"}
-    assert set(tcore.__all__) == want
+    """The port's ``repro_torch.core`` exports exactly the reference's names
+    (the distributed store's among them, since it was copied), each from the
+    copy of the module the reference's comes from."""
+    assert set(tcore.__all__) == set(jcore.__all__)
+    assert {"DistributedStore", "LeaseTable", "PeerUnreachable"} <= set(tcore.__all__)
     for name in tcore.__all__:
         assert getattr(tcore, name).__module__.replace("repro_torch.", "repro.") == getattr(jcore, name).__module__
 

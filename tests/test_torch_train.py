@@ -208,22 +208,20 @@ def test_accum_matches_full_batch(starcoder):
     lambda: dataclasses.replace(tcfgs.get_reduced("whisper_large_v3"), dtype="float32"),
 ], ids=["xlstm", "recurrentgemma", "encdec"])
 def test_unported_training_branches_raise(cfg_fn):
-    """Recurrent training is refused; the encoder-decoder trains: its loss
-    over a batch with frames is finite and gives every leaf a gradient."""
+    """The branches once refused now train: the recurrent archs and the
+    encoder-decoder (with frames) give a finite loss and every leaf a
+    non-zero gradient."""
     cfg = cfg_fn()
-    if cfg.encdec is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsteps.make_loss_fn(None, cfg)
-        return
     from repro_torch.nn.module import init_with_axes
 
     model = tcfgs.make_model(cfg)
     params = T.tree_map(lambda p: p.requires_grad_(), init_with_axes(model.init, 0, device="cpu")[0])
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 9)))
-    frames = torch.from_numpy(rng.normal(size=(2, cfg.encdec.n_frames, cfg.d_model)).astype(np.float32))
-    loss, metrics = tsteps.make_loss_fn(model, cfg)(params, {"frames": frames, "inputs": toks[:, :-1],
-                                                             "labels": toks[:, 1:]})
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.encdec is not None:
+        batch["frames"] = torch.from_numpy(rng.normal(size=(2, cfg.encdec.n_frames, cfg.d_model)).astype(np.float32))
+    loss, metrics = tsteps.make_loss_fn(model, cfg)(params, batch)
     loss.backward()
     assert bool(torch.isfinite(loss)) and set(metrics) == {"ce"}
     for path, p in T.flatten_with_path(params):
