@@ -78,7 +78,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                  ``steps.dense_serve_loop`` (batch 4, prompt 4096, 64 new tokens),
                  then profiled
 10. serve_xlstm  xlstm-125m, 12 layers, bf16 (batch 4, prompt 2048, 64 new
-                 tokens), then profiled
+                 tokens), then profiled at a prompt of 256 (the sLSTM loop's
+                 events cost the profiler ≈ 0.07 ms each to post-process)
 11. serve_check_recurrentgemma / serve_check_xlstm  one period at full width
                  in fp32 (3 and 4 layers): kernel tokens equal plain tokens,
                  and prefill logits agree within 5e-3
@@ -150,6 +151,29 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                  gradient tree drawn on the CPU, 3 rounds with error feedback
                  on the card and on the CPU: equal bit for bit; elements sent,
                  ms a round
+13i. mesh_train  the multi-device layer on the card: a one-rank NCCL process
+                 group and a 1 x 1 ("data", "model") DeviceMesh; the train
+                 phase's configuration (starcoder2-3b, 2 of 30 layers,
+                 ``remat="full"``, batch 8 x 1024) for 3 steps of
+                 ``steps.make_sharded_train_step`` on ``shard_state``'s DTensor
+                 state against 3 plain steps from the same init: losses and
+                 every state leaf equal to the bit (a differing leaf named,
+                 within 1e-6), each run's step times, no kernel launched
+13j. restore_sharded_serve  qwen3-8b at full width, 2 of 36 layers (bf16
+                 matrices, fp32 head): its params saved through
+                 ``CheckpointManager`` into a ``TwoLevelStore`` under build/ and
+                 ``restore_sharded`` onto the card's mesh from a meta template,
+                 then served from the restored leaves through
+                 ``tiered_serve_loop`` (batch 4, prompt 1024, 64 tokens, kv
+                 window 256, page 128): leaves, tokens and prefill logits equal
+                 to those of the unsaved params, 128 tiered and 2 flash
+                 launches; save MB/s, restore s
+13k. dryrun      ``repro_torch.launch.dryrun.run_cell`` (meta tensors; the
+                 step run on DTensors over a fake process group of the
+                 production world size) for qwen3-8b train_4k and
+                 deepseek-v3-671b decode_32k on 16x16 and 2x16x16:
+                 per-device bytes beside the card's, dot FLOPs per device
+                 and for the whole step
 14. phase_seconds  each phase's wall seconds, and the total from the build on
 15. kernels      one entry per kernel: launches in the serve phases that run
                  it, max error, times, bound
@@ -157,8 +181,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 Each serve phase zeroes the kernels' launch counts just before it serves and
 reads them just after, and asserts them (the training phases too: they launch none), and that every bf16 flash launch
 took the tensor-core kernel (serve_sessions: before each of its two runs).  Every phase runs, at the
-configs' full depth but train (2 of 30 layers), train_recurrentgemma (3 of 38), serve_grok and serve_deepseek
-(named above).  The nvidia-smi line comes
+configs' full depth but train and mesh_train (2 of 30 layers), train_recurrentgemma (3 of 38), serve_grok,
+serve_deepseek and restore_sharded_serve (named above).  The nvidia-smi line comes
 first; the last line is the contract line ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it, as does a machine without CUDA or a
 directory without the repository's sources.
@@ -170,6 +194,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -1207,10 +1232,13 @@ def serve_sessions_check_phase(record: dict) -> None:
 
 
 def recurrent_serve_phase(record: dict, out_dir: Path | None, arch: str, B: int, prompt_len: int,
-                          tokens: int) -> None:
+                          tokens: int, profile_len: int | None = None) -> None:
     """One recurrent arch at full width and depth, bf16, attn_impl="flash",
     through ``steps.dense_serve_loop`` (recurrent states and windowed ring
-    pages); each layer's prefill launches its mixer's kernel once."""
+    pages); each layer's prefill launches its mixer's kernel once.  The
+    profiled rerun prefills the first ``profile_len`` prompt tokens (all by
+    default): the profiler's post-processing costs about 0.07 ms an event,
+    and xlstm's sLSTM step loop makes ≈ 1.7 k events a prompt token."""
     import torch
 
     from repro_torch.configs import get_config, make_model
@@ -1255,7 +1283,8 @@ def recurrent_serve_phase(record: dict, out_dir: Path | None, arch: str, B: int,
         raise AssertionError(f"{phase}: bad generated tokens: shape {tuple(out.shape)}")
     record[phase] = row
     del caches
-    profile_serve(model, cfg, params, prompts, model.init_caches(B, prompt_len + 9, torch.bfloat16, "cuda"),
+    n = profile_len or prompt_len
+    profile_serve(model, cfg, params, prompts[:, :n], model.init_caches(B, n + 9, torch.bfloat16, "cuda"),
                   out_dir, phase)
     del params
     torch.cuda.empty_cache()
@@ -2055,11 +2084,223 @@ def train_check_phase(record: dict) -> None:
     record["train_check"] = row
 
 
+# ------------------------------------------------------------------- mesh
+
+
+@contextlib.contextmanager
+def card_mesh():
+    """A one-rank NCCL process group (``file://`` rendezvous under build/) and
+    a 1 x 1 ``("data", "model")`` DeviceMesh on the card; both torn down
+    after.  There is no fallback: NCCL failing to start fails the phase."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import _mk
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    rendezvous = Path(tempfile.mkdtemp(prefix="pg_", dir=ROOT / "build")) / "init"
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}", rank=0, world_size=1)
+    try:
+        yield _mk((1, 1), ("data", "model"), "cuda")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rendezvous.parent, ignore_errors=True)
+
+
+def mesh_train_phase(record: dict) -> None:
+    """The train phase's configuration (starcoder2-3b at full width, 2 of 30
+    layers, ``remat="full"``, batch 8 x 1024) on a 1 x 1 mesh: 3 steps of
+    ``make_sharded_train_step`` on ``shard_state``'s DTensor state against 3
+    plain steps from the same init, interleaved; losses and every state
+    leaf equal to the bit (or, where a leaf differs, within 1e-6 of its
+    largest value, the leaf named); both step times."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config, make_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
+    from repro_torch.optim.adamw import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, T, steps = 8, 1024, 3
+    cfg = dataclasses.replace(get_config("starcoder2_3b"), n_layers=TRAIN_LAYERS)
+    if cfg.remat != "full":
+        raise AssertionError(f"starcoder2-3b's remat is {cfg.remat!r}")
+    model = make_model(cfg)
+    opt = AdamW(learning_rate=1e-4)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (B, T + 1), generator=gen, device="cuda")
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    with card_mesh() as mesh:
+        state, axes = S.init_state(model, cfg, opt, seed=0, device="cuda")
+        sh = S.state_shardings(state, axes, mesh)
+        dstate = S.shard_state(tree.tree_map(torch.clone, state), sh)
+        dbatch = S.shard_state(batch, S.batch_shardings(batch, mesh))
+        plain_step = S.make_train_step(model, cfg, opt)
+        mesh_step = S.make_sharded_train_step(model, cfg, opt, sh)
+        losses = {"plain": [], "mesh": []}
+        seconds = {"plain": [], "mesh": []}
+        ops.reset_launches()
+        for _ in range(steps):
+            for name in ("plain", "mesh"):
+                t0 = time.perf_counter()
+                if name == "plain":
+                    state, m = plain_step(state, batch)
+                else:
+                    dstate, m = mesh_step(dstate, dbatch)
+                loss = float(m["loss"])
+                seconds[name].append(time.perf_counter() - t0)
+                losses[name].append(loss)
+        launches = ops.launches()
+        worst = ("", 0.0)
+        unequal = 0
+        for (path, a), (_, b) in zip(tree.flatten_with_path(dstate), tree.flatten_with_path(state)):
+            a = a.full_tensor()
+            if not torch.equal(a, b):
+                unequal += 1
+                gap = float((a.double() - b.double()).abs().max() / b.double().abs().max().clamp_min(1e-30))
+                worst = max(worst, ("/".join(path), gap), key=lambda w: w[1])
+        placements = sorted({str(x.placements) for x in tree.leaves(dstate)})
+    # Each run's steps after its first (which builds the step's caches):
+    # the samples themselves, too few for a median.
+    row = dict(arch=cfg.name, layers=cfg.n_layers, batch=B, seq=T, steps=steps, remat=cfg.remat, mesh="1x1",
+               backend="nccl", losses=losses, losses_equal=losses["plain"] == losses["mesh"],
+               leaves_unequal=unequal, worst_leaf=worst[0], worst_leaf_rel_gap=worst[1],
+               first_step_s={k: v[0] for k, v in seconds.items()},
+               plain_step_s=seconds["plain"][1:], mesh_step_s=seconds["mesh"][1:],
+               placements=placements, launches=launches)
+    emit("mesh_train", **row)
+    if any(launches.values()):
+        raise AssertionError(f"training launched kernels: {launches}")
+    if not all(map(math.isfinite, losses["mesh"])):
+        raise AssertionError(f"non-finite losses {losses}")
+    if worst[1] > 1e-6 or max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"], losses["plain"])) > 1e-6:
+        raise AssertionError(f"the mesh steps left the plain ones: {row}")
+    record["mesh_train"] = row
+    del state, dstate
+    torch.cuda.empty_cache()
+
+
+RESTORE_LAYERS = 2  # of qwen3-8b's 36: the checkpoint is the embedding, the fp32 head and 2 layers
+
+
+def restore_sharded_serve_phase(record: dict) -> None:
+    """qwen3-8b at full width, 2 of 36 layers, bf16 matrices and the fp32 head
+    as ``serve`` draws them: the params saved through ``CheckpointManager``
+    into a ``TwoLevelStore`` under build/, ``restore_sharded`` onto the
+    card's 1 x 1 mesh with ``state_shardings(...)["params"]`` from a meta
+    template, then served from the restored leaves' local tensors through
+    ``tiered_serve_loop`` (batch 4, prompt 1024, 64 new tokens, kv window
+    256, page 128; counted: 2 x 64 tiered and 2 flash launches); the
+    restored leaves equal the saved ones to the byte, and the tokens and
+    prefill logits those served from the original params."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config, make_model
+    from repro_torch.core import TwoLevelStore
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.serve import init_params
+    from repro_torch.nn.layers import cdtype
+    from repro_torch.nn.module import init_with_axes, matrix_cast
+    from repro_torch.runtime import CheckpointManager
+
+    B, prompt_len, tokens, window, page = 4, 1024, 64, 256, 128
+    cfg = dataclasses.replace(get_config("qwen3_8b"), n_layers=RESTORE_LAYERS, attn_impl="flash",
+                              scan_layers=False)
+    model = make_model(cfg)
+    params = init_params(model, seed=0, device="cuda")
+    template, axes = init_with_axes(model.init, 0, device="meta", cast=matrix_cast(cdtype(cfg), ("head",)))
+    nbytes = sum(t.numel() * t.element_size() for t in tree.leaves(params))
+    prompts = torch.randint(0, cfg.vocab, (B, prompt_len), generator=torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="restore_", dir=ROOT / "build"))
+    try:
+        with card_mesh() as mesh, TwoLevelStore(str(root), mem_capacity_bytes=256 * 2**20,
+                                                 block_bytes=4 * 2**20) as st:
+            cm = CheckpointManager(st, tag="serve", mode="sync")
+            t0 = time.perf_counter()
+            cm.save(0, params)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            step, restored = cm.restore_sharded(template, S.state_shardings({"params": template}, axes,
+                                                                            mesh)["params"])
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            placements = sorted({str(x.placements) for x in tree.leaves(restored)})
+            local = tree.tree_map(lambda x: x.to_local(), restored)
+        del restored
+        same = [torch.equal(a, b) and a.dtype == b.dtype for a, b in zip(tree.leaves(local), tree.leaves(params))]
+
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        got, prefill_s, decode_s, _ = S.tiered_serve_loop(model, cfg, local, prompts, tokens, window=window,
+                                                          page=page)
+        launches, paths = ops.launches(), ops.flash_path_launches()
+        want, _, _, _ = S.tiered_serve_loop(model, cfg, params, prompts, tokens, window=window, page=page)
+        logits = [model.prefill(p, prompts, S.make_tiered_caches(model, cfg, B, prompt_len + 1, window, page,
+                                                                torch.bfloat16, "cuda"))[0].float()
+                  for p in (local, params)]
+        logits_gap = float((logits[0] - logits[1]).abs().max() / logits[1].abs().max())
+        row = dict(arch=cfg.name, layers=cfg.n_layers, batch=B, prompt_len=prompt_len, tokens=tokens,
+                   kv_window=window, kv_page=page, ckpt_bytes=nbytes, step=step, save_s=save_s,
+                   save_mb_per_s=nbytes / save_s / 1e6, restore_s=restore_s, restore_mb_per_s=nbytes / restore_s / 1e6,
+                   placements=placements, leaves=len(same), leaves_equal=sum(same),
+                   tokens_equal=bool(torch.equal(got, want)), logits_rel_gap=logits_gap, prefill_s=prefill_s,
+                   decode_tok_per_s=B * tokens / decode_s, launches=launches, flash_paths=paths)
+        emit("restore_sharded_serve", **row)
+        want_launches = {"tiered_decode": cfg.n_layers * tokens, "flash_attention": cfg.n_layers, "rglru": 0,
+                         "mlstm": 0}
+        if launches != want_launches:
+            raise AssertionError(f"launch counts {launches} != {want_launches}")
+        if paths != {"tensor_core": cfg.n_layers, "cuda_core": 0}:
+            raise AssertionError(f"bf16 flash launches off the tensor-core path: {paths}")
+        if not all(same) or not row["tokens_equal"] or logits_gap > 1e-6 or step != 0:
+            raise AssertionError(f"the restored params serve otherwise: {row}")
+        record["restore_sharded_serve"] = row
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def dryrun_phase(record: dict) -> None:
+    """``repro_torch.launch.dryrun.run_cell`` (meta tensors; the step run
+    once on DTensors over a fake process group of the production world
+    size, in this process) for qwen3-8b ``train_4k`` and deepseek-v3-671b
+    ``decode_32k`` on the 16x16 and 2x16x16 meshes: per-device bytes beside
+    this card's memory, and the step's dot FLOPs per device and whole."""
+    import torch
+
+    from repro_torch.launch.dryrun import run_cell
+
+    card = torch.cuda.get_device_properties(0).total_memory
+    rows = []
+    for arch, shape in (("qwen3_8b", "train_4k"), ("deepseek_v3_671b", "decode_32k")):
+        for multi in (False, True):
+            r = run_cell(arch, shape, multi)
+            per_device = r["memory"]["argument_size_in_bytes"]
+            row = dict(arch=arch, shape=shape, mesh=r["mesh"], n_devices=r["n_devices"], memory=r["memory"],
+                       per_device_bytes=per_device, card_bytes=card, fits_card=per_device <= card,
+                       dot_flops=r["dot_flops"], global_dot_flops=r["global_dot_flops"],
+                       param_count=r["param_count"], seconds=r["account_s"])
+            emit("dryrun", **row)
+            if per_device <= 0 or not 0 < r["dot_flops"] <= r["global_dot_flops"]:
+                raise AssertionError(f"empty dry-run record: {row}")
+            rows.append(row)
+    record["dryrun"] = rows
+
+
 # ------------------------------------------------------------------------- main
 
 
 SERVE_PHASES = ("serve", "serve_store", "serve_sessions", "serve_recurrentgemma", "serve_xlstm", "serve_grok",
-                "serve_deepseek", "serve_gemma3", "serve_whisper", "serve_internvl2")
+                "serve_deepseek", "serve_gemma3", "serve_whisper", "serve_internvl2", "restore_sharded_serve")
 
 
 def kernels_line(record: dict) -> dict:
@@ -2163,7 +2404,8 @@ def main() -> int:
         ("serve_sessions_check", lambda: serve_sessions_check_phase(record)),
         ("serve_recurrentgemma", lambda: recurrent_serve_phase(record, out_dir, "recurrentgemma_9b", B=4,
                                                                prompt_len=4096, tokens=64)),
-        ("serve_xlstm", lambda: recurrent_serve_phase(record, out_dir, "xlstm_125m", B=4, prompt_len=2048, tokens=64)),
+        ("serve_xlstm", lambda: recurrent_serve_phase(record, out_dir, "xlstm_125m", B=4, prompt_len=2048, tokens=64,
+                                                      profile_len=256)),
         ("serve_check_recurrentgemma", lambda: recurrent_serve_check_phase(record, "recurrentgemma_9b", B=2,
                                                                            prompt_len=2100, tokens=16)),
         ("serve_check_xlstm", lambda: recurrent_serve_check_phase(record, "xlstm_125m", B=2, prompt_len=16,
@@ -2185,6 +2427,9 @@ def main() -> int:
         ("train_recurrentgemma", lambda: train_recurrentgemma_phase(record, out_dir)),
         ("train_xlstm", lambda: train_xlstm_phase(record)),
         ("compress", lambda: compress_phase(record)),
+        ("mesh_train", lambda: mesh_train_phase(record)),
+        ("restore_sharded_serve", lambda: restore_sharded_serve_phase(record)),
+        ("dryrun", lambda: dryrun_phase(record)),
     ]
     seconds = {}
     for name, run in phases:

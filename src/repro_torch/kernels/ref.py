@@ -124,7 +124,7 @@ def rglru_ref(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor | None = None) 
     with an fp32 carry; the output takes x's dtype."""
     b, s, w = a.shape
     h = torch.zeros((b, w), dtype=torch.float32, device=a.device) if h0 is None else h0.float()
-    out = torch.empty((b, s, w), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)  # a DTensor on a mesh, as x is
     for t in range(s):
         h = a[:, t].float() * h + x[:, t].float()
         out[:, t] = h

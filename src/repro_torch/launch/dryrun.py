@@ -1,0 +1,374 @@
+"""Multi-pod dry-run of the port: per-device memory and matrix-product FLOPs
+of every (arch × shape × mesh) cell, without the devices — the port of
+``repro/launch/dryrun.py``'s abstract init and accounting.
+
+Per cell the dry-run:
+  1. builds the abstract train state and the cell's inputs on the ``meta``
+     device (shapes and dtypes, no memory);
+  2. resolves their shardings on the production mesh's axis sizes
+     (``launch.mesh.production_shape``) by the shard-if-divisible rules;
+  3. records per-device bytes of params, optimizer state, batch or caches,
+     each leaf counted at its local shard's shape (the counterpart of XLA's
+     ``argument_size_in_bytes``);
+  4. records ``global_dot_flops``, the whole step's matrix-product FLOPs
+     (mm, addmm, bmm, baddbmm; 2·M·N·K each), from a run on unsharded meta
+     tensors under the mesh's ``axis_rules`` (forward and backward for
+     ``train``; the MoE dispatches one group per data-parallel shard, as on
+     the mesh), and ``dot_flops``, one device's share, from a second run
+     on those shardings: every leaf a DTensor over meta blocks, on a
+     ``DeviceMesh`` of the production shape over a ``fake`` process group
+     of its world size in this one process (collectives do nothing), the
+     step ``steps.on_mesh``.  A dispatch mode counts each DTensor product
+     at its global shapes divided by the mesh dims its output is split
+     over, and each plain one whole (``DotFlops``): the FLOPs of one
+     device's block, as the reference's ``corrected.dot_flops`` counts the
+     SPMD-partitioned program of one device.  The port's layers are
+     unrolled, so there is no loop trip count to correct for.  The recurrent archs' train and
+     prefill steps loop over time steps in Python (the plain scans), which
+     on meta costs hours at 32k steps: there only ``global_dot_flops`` is
+     recorded, a polynomial of degree <= 2 in the sequence length (loops
+     linear, attention quadratic) interpolated through three short lengths
+     of a run on unsharded meta tensors and checked exactly at a fourth
+     (``dot_flops_from``); ``dot_flops`` is null, since DTensor chooses its
+     redistributions by their cost, which changes with the length, so a
+     short run's per-device count does not extrapolate;
+  5. writes JSON under ``build/dryrun_torch/`` (``--out``).
+
+XLA's ``temp_size_in_bytes``, ``cost_analysis`` and the collective bytes
+read from compiled HLO have no counterpart without a compiled program, and
+none is recorded.
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k --mesh both
+  python -m repro_torch.launch.dryrun --all [--force]
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import math
+import time
+import traceback
+from fractions import Fraction
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
+
+from repro_torch.configs import ARCH_IDS, SHAPES, applicable_shapes, get_config, get_reduced, make_model
+from repro_torch.configs.base import ArchConfig, ShapeCell
+from repro_torch.launch.mesh import production_shape
+from repro_torch.launch.steps import (
+    batch_shardings,
+    cache_shardings,
+    init_state,
+    input_specs,
+    make_prefill_step,
+    make_serve_step,
+    make_sharded_train_step,
+    make_train_step,
+    on_mesh,
+    shard_state,
+    state_shardings,
+)
+from repro_torch.nn import layers as L
+from repro_torch.nn.module import RULE_SETS, MeshShape, axis_rules, mesh_shape
+from repro_torch.optim.adamw import AdamW
+from repro_torch.tree import flatten_with_path
+
+OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun_torch"
+
+_DOTS = {torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm, torch.ops.aten.baddbmm}
+
+
+def device_bytes(tree, shardings) -> int:
+    """Bytes one device holds of ``tree``: each tensor leaf at its local
+    shard's shape; a host int (a cache's ``index``) holds none."""
+    sh = dict(flatten_with_path(shardings))
+    out = 0
+    for path, leaf in flatten_with_path(tree):
+        if isinstance(leaf, torch.Tensor):
+            out += math.prod(sh[path].shard_shape(tuple(leaf.shape))) * leaf.element_size()
+    return out
+
+
+class DotFlops(TorchDispatchMode):
+    """Counts the matrix products one device runs, 2·M·N·K each: a DTensor
+    product at its global shapes divided by the mesh dims its output is
+    split over (sharded, or a partial sum); a plain one whole, as every
+    device runs it (a ``local_map`` block runs plain products on its own
+    block).  A DTensor op reaches the mode before DTensor splits it, and
+    the per-block products it then runs do not."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func._overloadpacket in _DOTS:
+            flops = flop_registry[func._overloadpacket](*args, **kwargs, out_val=out)
+            if isinstance(out, DTensor):
+                mesh = out.device_mesh
+                flops //= math.prod(mesh.size(i) for i, p in enumerate(out.placements) if not p.is_replicate())
+            self.flops += flops
+        return out
+
+
+@contextlib.contextmanager
+def fake_mesh(mesh) -> DeviceMesh:
+    """A ``DeviceMesh`` of ``mesh``'s axis sizes on the CPU over a ``fake``
+    process group of its world size, as rank 0, in this process: DTensor
+    runs its sharding rules and collectives do nothing.  Torn down after;
+    refused where a process group already exists."""
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401  (registers the "fake" backend)
+
+    if dist.is_initialized():
+        raise RuntimeError("the dry-run runs its own fake process group; one is already initialised")
+    sizes = mesh_shape(mesh)
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0, world_size=math.prod(sizes.values()))
+    try:
+        yield init_device_mesh("cpu", tuple(sizes.values()), mesh_dim_names=tuple(sizes))
+    finally:
+        dist.destroy_process_group()
+
+
+FIT_SEQ = (8, 16, 24, 32)
+
+
+def fit_in_seq(count, seq_len: int, points: tuple[int, ...] = FIT_SEQ) -> int:
+    """``count(seq_len)`` for a count that is a polynomial of degree <= 2
+    in the sequence length: interpolated through ``count`` at the first
+    three ``points``, and refused unless it gives the fourth exactly."""
+    xs, ys = points[:3], [count(s) for s in points]
+
+    def at(x: int) -> Fraction:
+        total = Fraction(0)
+        for i, (xi, yi) in enumerate(zip(xs, ys)):
+            term = Fraction(yi)
+            for j, xj in enumerate(xs):
+                if j != i:
+                    term *= Fraction(x - xj, xi - xj)
+            total += term
+        return total
+
+    if at(points[3]) != ys[3]:
+        raise ValueError(f"count is not quadratic in the sequence length: {dict(zip(points, ys))}")
+    return int(at(seq_len))
+
+
+def _inputs(model, cfg: ArchConfig, cell: ShapeCell) -> dict:
+    """The cell's meta inputs.  Prefill fills fresh caches (an
+    encoder-decoder's cross (k, v) come out of it), as the reference's
+    dry-run lowers it."""
+    inputs = input_specs(model, cfg, cell)
+    if cell.kind == "prefill":
+        inputs["caches"] = model.init_caches(cell.global_batch, cell.seq_len, getattr(torch, cfg.dtype), "meta")
+    return inputs
+
+
+def sharded_dot_flops(model, cfg: ArchConfig, cell: ShapeCell, state: dict, axes, optimizer: AdamW, mesh,
+                      rules: dict, seq_shard: bool = False) -> int:
+    """One device's matrix-product FLOPs in one run of the cell's step on
+    ``mesh`` (a ``DeviceMesh``), its state, batch and caches sharded as the
+    dry-run accounts them."""
+    sh = state_shardings(state, axes, mesh, rules)
+    state = shard_state(state, sh)
+    inputs = _inputs(model, cfg, cell)
+    if cell.kind == "train":
+        step = make_sharded_train_step(model, cfg, optimizer, sh, rules)
+        args = (state, shard_state(inputs["batch"], batch_shardings(inputs["batch"], mesh)))
+    else:
+        first = inputs["batch"] if cell.kind == "prefill" else inputs["token"]
+        step = on_mesh((make_prefill_step if cell.kind == "prefill" else make_serve_step)(model, cfg), mesh, rules)
+        args = (state["params"], shard_state(first, batch_shardings(first, mesh)),
+                shard_state(inputs["caches"], cache_shardings(inputs["caches"], cfg, mesh, seq_shard)))
+    return _count(step, args)
+
+
+def whole_dot_flops(model, cfg: ArchConfig, cell: ShapeCell, state: dict, optimizer: AdamW, mesh,
+                    rules: dict) -> int:
+    """The whole step's matrix-product FLOPs, from one run on unsharded
+    meta tensors under ``mesh``'s ``axis_rules`` (the MoE dispatches one
+    group per data-parallel shard, as on the mesh)."""
+    inputs = _inputs(model, cfg, cell)
+    if cell.kind == "train":
+        step, args = make_train_step(model, cfg, optimizer), (state, inputs["batch"])
+    elif cell.kind == "prefill":
+        step, args = make_prefill_step(model, cfg), (state["params"], inputs["batch"], inputs["caches"])
+    else:
+        step, args = make_serve_step(model, cfg), (state["params"], inputs["token"], inputs["caches"])
+    with axis_rules(mesh, rules):
+        return _count(step, args)
+
+
+def _count(step, args) -> int:
+    try:
+        with DotFlops() as counter:
+            step(*args)
+    finally:
+        L.reset_moe_counts()  # the run's counters hold meta tensors
+    return counter.flops
+
+
+def account(cfg: ArchConfig, cell: ShapeCell, mesh, rules_name: str = "default", seq_shard: bool = False) -> dict:
+    """The dry-run's record of one cell on ``mesh`` (anything ``mesh_shape``
+    reads): ``memory`` (per-device bytes), ``dot_flops`` (per device) and
+    ``global_dot_flops`` (the whole step)."""
+    rules = RULE_SETS[rules_name]
+    model = make_model(cfg)
+    optimizer = AdamW()
+    state, axes = init_state(model, cfg, optimizer, device="meta")
+    st_sh = state_shardings(state, axes, mesh, rules)
+    inputs = _inputs(model, cfg, cell)
+    memory = {"params": device_bytes(state["params"], st_sh["params"])}
+    if cell.kind == "train":
+        memory["opt"] = device_bytes(state["opt"], st_sh["opt"]) + device_bytes(state["step"], st_sh["step"])
+    else:
+        memory["caches"] = device_bytes(inputs["caches"], cache_shardings(inputs["caches"], cfg, mesh, seq_shard))
+    if "batch" in inputs:
+        memory["batch"] = device_bytes(inputs["batch"], batch_shardings(inputs["batch"], mesh))
+    else:
+        memory["token"] = device_bytes(inputs["token"], batch_shardings(inputs["token"], mesh))
+    memory["argument_size_in_bytes"] = sum(memory.values())
+
+    if cfg.recurrent is not None and cell.kind != "decode":
+        # DTensor picks its redistributions by their cost, which changes with
+        # the sequence length, so the per-device count of a short run does
+        # not extrapolate, and a full-length run of the Python time loop
+        # takes hours on meta: only the whole step's count is recorded.
+        total = fit_in_seq(lambda s: whole_dot_flops(model, cfg, dataclasses.replace(cell, seq_len=s), state,
+                                                     optimizer, mesh, rules), cell.seq_len)
+        device, how = None, "seq fit " + "/".join(map(str, FIT_SEQ)) + " of the whole step; per device not counted"
+    else:
+        total = whole_dot_flops(model, cfg, cell, state, optimizer, mesh, rules)
+        with fake_mesh(mesh) as dmesh:
+            device = sharded_dot_flops(model, cfg, cell, state, axes, optimizer, dmesh, rules, seq_shard)
+        how = "run"
+    return {"memory": memory, "dot_flops": device, "global_dot_flops": total, "dot_flops_from": how}
+
+
+def run_cell(
+    arch: str,
+    shape_name: str,
+    multi_pod: bool,
+    seq_shard: bool = False,
+    seq_parallel: bool = False,
+    remat: str | None = None,
+    rules_name: str = "default",
+    dp: int | None = None,
+    reduced: bool = False,
+) -> dict:
+    cfg = (get_reduced if reduced else get_config)(arch)
+    if seq_parallel:
+        cfg = dataclasses.replace(cfg, seq_parallel=True)
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat=remat)
+    cell = SHAPES[shape_name]
+    if reduced:  # a reduced config's positions may not reach the cell's length (whisper's 128)
+        cell = dataclasses.replace(cell, seq_len=min(cell.seq_len, cfg.max_seq_len))
+    if dp is not None:
+        # perf-variant mesh: same 256 ranks, different dp x tp split
+        if 256 % dp:
+            raise ValueError(f"dp={dp} must divide 256")
+        mesh = MeshShape(data=dp, model=256 // dp)
+    else:
+        mesh = production_shape(multi_pod=multi_pod)
+    t0 = time.time()
+    acc = account(cfg, cell, mesh, rules_name, seq_shard)
+    n_devices = math.prod(mesh_shape(mesh).values())
+    return {
+        "arch": arch,
+        "shape": shape_name,
+        "mesh": "x".join(str(n) for n in mesh_shape(mesh).values()),
+        "n_devices": n_devices,
+        "kind": cell.kind,
+        "seq_len": cell.seq_len,
+        "seq_shard": seq_shard,
+        "account_s": round(time.time() - t0, 2),
+        **acc,
+        "param_count": cfg.param_count(),
+        "active_param_count": cfg.active_param_count(),
+    }
+
+
+def cell_path(arch: str, shape_name: str, multi_pod: bool, tag: str = "", out: Path = OUT_DIR) -> Path:
+    out.mkdir(parents=True, exist_ok=True)
+    suffix = f"_{tag}" if tag else ""
+    return out / f"{arch}__{shape_name}__{'multi' if multi_pod else 'single'}{suffix}.json"
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", choices=["single", "multi", "both"], default="both")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--seq-shard", action="store_true", help="shard cache seq dim (perf variant)")
+    ap.add_argument("--seq-parallel", action="store_true", help="sequence-parallel residual (perf variant)")
+    ap.add_argument("--remat", default=None, choices=["none", "full", "dots"], help="override remat policy")
+    ap.add_argument("--rules", default="default", choices=["default", "fsdp"], help="sharding rule set")
+    ap.add_argument("--dp", type=int, default=None, help="override dp size (single-pod perf variant)")
+    ap.add_argument("--tag", default="", help="suffix for output JSON (perf variants)")
+    ap.add_argument("--reduced", action="store_true", help="the archs' reduced configs")
+    ap.add_argument("--out", type=Path, default=OUT_DIR, help="directory of the JSON records")
+    args = ap.parse_args(argv)
+
+    if args.all:
+        archs = ARCH_IDS
+    elif args.arch:
+        archs = [args.arch.replace("-", "_")]
+    else:
+        ap.error("--arch or --all required")
+
+    meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
+    failures = []
+    for arch in archs:
+        cfg = get_config(arch)
+        shapes = [args.shape] if args.shape else [c.name for c in applicable_shapes(cfg)]
+        for shape_name in shapes:
+            for multi in meshes:
+                path = cell_path(arch, shape_name, multi, args.tag, args.out)
+                if path.exists() and not args.force:
+                    print(f"[skip] {path}")
+                    continue
+                label = f"{arch} x {shape_name} x {'2x16x16' if multi else '16x16'}"
+                print(f"[dryrun] {label} ...", flush=True)
+                try:
+                    res = run_cell(
+                        arch, shape_name, multi,
+                        seq_shard=args.seq_shard, seq_parallel=args.seq_parallel,
+                        remat=args.remat, rules_name=args.rules, dp=args.dp, reduced=args.reduced,
+                    )
+                    path.write_text(json.dumps(res, indent=2))
+                    m = res["memory"]
+                    print(
+                        f"[ok] {label}: {res['account_s']}s "
+                        f"args/device={m['argument_size_in_bytes']:.3e}B dot_flops/device={res['dot_flops']} "
+                        f"global={res['global_dot_flops']:.3e}",
+                        flush=True,
+                    )
+                except Exception as e:
+                    failures.append((label, repr(e)))
+                    traceback.print_exc()
+                    print(f"[FAIL] {label}: {e}", flush=True)
+
+    if failures:
+        print(f"\n{len(failures)} FAILURES:")
+        for label, err in failures:
+            print(f"  {label}: {err[:200]}")
+        raise SystemExit(1)
+    print("\nall requested dry-run cells passed")
+
+
+if __name__ == "__main__":
+    main()

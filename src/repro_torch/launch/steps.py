@@ -1,21 +1,36 @@
-"""Step builders of the port — ``repro/launch/steps.py`` but its input
-specs and sharding (no mesh here): the loss (with the MoE aux and MTP
-terms) and train step of the training plane, greedy prefill/decode steps,
-and two-level (tiered KV) serving."""
+"""The port's steps — ``repro/launch/steps.py``: the loss (with
+the MoE aux and MTP terms) and train step of the training plane, greedy
+prefill/decode steps, two-level (tiered KV) serving, the cells' abstract
+inputs on the ``meta`` device, and sharding resolution for states, batches
+and caches.
+
+Everything here is mesh-agnostic until ``*_shardings`` binds a mesh via the
+shard-if-divisible rules (``repro_torch.nn.module``).  A sharded state is a
+tree of DTensors (``shard_state``): placement rides on the leaves, so the
+one ``make_train_step`` runs on one process or on a ``DeviceMesh``;
+``on_mesh`` only enters the mesh's ``axis_rules``, and
+``make_sharded_train_step`` also keeps the new state on its shardings, as
+the reference's ``out_shardings`` do.
+"""
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
+from repro_torch.launch.mesh import dp_axis_names
 from repro_torch.models.lm import make_layer_cache
 from repro_torch.nn import layers as L
+from repro_torch.nn.module import NamedSharding, axis_rules, constrain, logical_to_pspec, mesh_shape
 from repro_torch.optim.adamw import AdamW, apply_updates
 from repro_torch.serving import TieredKVCache
-from repro_torch.tree import tree_map
+from repro_torch.tree import map_with_path, tree_map
 
 PyTree = Any
 
@@ -35,7 +50,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Ten
     mask = (labels != IGNORE_INDEX).to(torch.float32)
     safe = torch.where(labels == IGNORE_INDEX, 0, labels).long()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    # DTensor's gather over a vocab-sharded dim yields a masked partial it
+    # cannot reduce: the gold logit is read from vocab-replicated logits.
+    gold = torch.gather(constrain(logits, "batch", "seq", None), -1, safe[..., None])[..., 0]
     ce = (logz - gold) * mask
     n = torch.clamp(mask.sum(), min=1.0)
     loss = ce.sum() / n
@@ -124,10 +141,52 @@ def make_train_step(model, cfg: ArchConfig, optimizer: AdamW, accum_steps: int =
     return train_step
 
 
+def on_mesh(fn: Callable, mesh, rules=None) -> Callable:
+    """``fn`` run on DTensor arguments: under the mesh's ``axis_rules`` (the
+    activation constraints and the MoE's dispatch groups) and
+    ``implicit_replication``, so the plain tensors it makes (RoPE tables,
+    masks, zeros, the learning rate) join the DTensors as replicated.  This
+    is the only place that enters it."""
+
+    def run(*args):
+        with axis_rules(mesh, rules), implicit_replication():
+            return fn(*args)
+
+    return run
+
+
+def make_sharded_train_step(model, cfg: ArchConfig, optimizer: AdamW, shardings: PyTree, rules=None) -> Callable:
+    """``make_train_step``'s step on a DTensor state laid out by ``shardings``
+    (``state_shardings``) and a DTensor batch (``batch_shardings``), run
+    ``on_mesh``.  The new state is redistributed onto ``shardings`` and the
+    metrics come back as plain (replicated) tensors."""
+    step = make_train_step(model, cfg, optimizer)
+
+    def place(x, sh: NamedSharding):
+        want = sh.placements()
+        return x.redistribute(sh.mesh, want) if tuple(x.placements) != want else x
+
+    def placed_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        new_state, metrics = step(state, batch)
+        return tree_map(place, new_state, shardings), metrics
+
+    sharded = on_mesh(placed_step, shardings["step"].mesh, rules)
+
+    def sharded_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        new_state, metrics = sharded(state, batch)
+        return new_state, {k: v.full_tensor() if isinstance(v, DTensor) else v for k, v in metrics.items()}
+
+    return sharded_step
+
+
 def init_state(model, cfg: ArchConfig, optimizer: AdamW, seed: int = 0, device="cuda") -> tuple[dict, PyTree]:
     """(state, axes) — params in ``cfg.param_dtype`` drawn from ``seed`` by the
     port's own generator (``nn.module.init_with_axes``, as serving's
-    ``init_params``), zero moments, step 0.  Axes only cover the params."""
+    ``init_params``), zero moments, step 0.  Axes only cover the params.
+
+    ``device="meta"`` is the reference's ``abstract=True``: every leaf, the
+    moments and the scalar counts included, is a meta tensor of its shape
+    and dtype, and nothing is allocated."""
     from repro_torch.nn.module import init_with_axes
 
     params, axes = init_with_axes(model.init, seed, device=device, dtype=getattr(torch, cfg.param_dtype))
@@ -153,15 +212,22 @@ def make_prefill_step(model, cfg: ArchConfig) -> Callable:
             logits, caches = model.prefill(params, batch["inputs"], caches, patches=batch.get("patches"))
         else:
             logits, caches = model.prefill(params, batch["inputs"], caches)
-        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32), caches
+        return _last_token(logits), caches
 
     return prefill_step
+
+
+def _last_token(logits: torch.Tensor) -> torch.Tensor:
+    """The last position's argmax token.  On a mesh it reads
+    vocab-replicated logits: DTensor's argmax over a vocab-sharded dim
+    fails at batch 1."""
+    return torch.argmax(constrain(logits[:, -1, :], "batch", None), dim=-1).to(torch.int32)
 
 
 def make_serve_step(model, cfg: ArchConfig) -> Callable:
     def serve_step(params, token: torch.Tensor, caches) -> tuple[torch.Tensor, PyTree]:
         logits, caches = model.decode_step(params, token, caches)
-        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None], caches
+        return _last_token(logits)[:, None], caches
 
     return serve_step
 
@@ -299,3 +365,148 @@ def tiered_cache_stats(caches: dict) -> dict:
         "hot_device_bytes": sum(c.hot_device_bytes() for c in tiered),
         "host_bytes": sum(c.host_bytes() for c in tiered),
     }
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors; no allocation)
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=getattr(torch, dtype) if isinstance(dtype, str) else dtype,
+                       device="meta")
+
+
+def batch_specs(cfg: ArchConfig, cell: ShapeCell) -> dict:
+    """Train/prefill batch of one shape cell, as meta tensors."""
+    b, s = cell.global_batch, cell.seq_len
+    if cfg.encdec is not None:
+        spec = {
+            "frames": _meta((b, cfg.encdec.n_frames, cfg.encdec.frame_dim), cfg.dtype),
+            "inputs": _meta((b, s), torch.int32),
+        }
+    elif cfg.vlm is not None:
+        spec = {
+            "inputs": _meta((b, s - cfg.vlm.n_patches), torch.int32),
+            "patches": _meta((b, cfg.vlm.n_patches, cfg.vlm.patch_dim), cfg.dtype),
+        }
+    else:
+        spec = {"inputs": _meta((b, s), torch.int32)}
+    if cell.kind == "train":
+        spec["labels"] = _meta((b, spec["inputs"].shape[1]), torch.int32)
+    return spec
+
+
+def cache_specs(model, cfg: ArchConfig, cell: ShapeCell) -> PyTree:
+    """The KV-cache / recurrent-state tree of a decode or prefill cell on
+    ``meta``, laid out per layer as the port's caches are; an
+    encoder-decoder's also holds each layer's cross (k, v), which decode
+    reads from prefill."""
+    b = cell.global_batch
+    dtype = getattr(torch, cfg.dtype)
+    caches = model.init_caches(b, cell.seq_len, dtype, device="meta")
+    if cfg.encdec is not None:
+        kv = (b, cfg.encdec.n_frames, cfg.n_kv_heads, cfg.resolved_head_dim)
+        caches = {"self": caches["self"],
+                  "cross": {f"prefix_{i}": {"k": _meta(kv, dtype), "v": _meta(kv, dtype)}
+                            for i in range(cfg.n_layers)}}
+    return caches
+
+
+def token_specs(cfg: ArchConfig, cell: ShapeCell) -> torch.Tensor:
+    return _meta((cell.global_batch, 1), torch.int32)
+
+
+def input_specs(model, cfg: ArchConfig, cell: ShapeCell) -> dict:
+    """All abstract inputs for the cell's step function (the dry-run entry).
+
+    train  -> {"batch": ...}
+    prefill-> {"batch": ..., "caches": ...}
+    decode -> {"token": ..., "caches": ...}
+    """
+    if cell.kind == "train":
+        return {"batch": batch_specs(cfg, cell)}
+    if cell.kind == "prefill":
+        return {"batch": batch_specs(cfg, cell), "caches": cache_specs(model, cfg, cell)}
+    return {"token": token_specs(cfg, cell), "caches": cache_specs(model, cfg, cell)}
+
+
+# ---------------------------------------------------------------------------
+# Sharding resolution
+# ---------------------------------------------------------------------------
+
+
+def _shard_if(dim: int, axes: tuple[str, ...], mesh):
+    sizes = mesh_shape(mesh)
+    size = math.prod(sizes[a] for a in axes) if axes else 1
+    if size > 1 and dim % size == 0:
+        return axes if len(axes) > 1 else axes[0]
+    return None
+
+
+def state_shardings(state_shapes: PyTree, axes: PyTree, mesh, rules=None) -> PyTree:
+    """``NamedSharding``s for {params, opt, step} from the params axes tree."""
+    params_sh = tree_map(lambda spec: NamedSharding(mesh, spec),
+                         logical_to_pspec(axes, state_shapes["params"], mesh, rules))
+    return {
+        "params": params_sh,
+        "opt": {"m": params_sh, "v": params_sh, "count": replicated(mesh)},
+        "step": replicated(mesh),
+    }
+
+
+def batch_shardings(batch_shapes: PyTree, mesh) -> PyTree:
+    """Shard the leading batch dim over (pod, data); replicate the rest."""
+    dp = dp_axis_names(mesh)
+    return tree_map(lambda leaf: NamedSharding(mesh, (_shard_if(leaf.shape[0], dp, mesh), *([None] * (leaf.ndim - 1)))),
+                    batch_shapes)
+
+
+def cache_shardings(cache_shapes: PyTree, cfg: ArchConfig, mesh, seq_shard: bool = False) -> PyTree:
+    """Cache sharding: batch over DP, head-like dims over 'model' when
+    divisible. ``seq_shard=True`` shards the cache sequence dim over 'model'
+    instead (long-context lever for kv=1 archs).
+
+    The reference's per-name rules on the port's per-layer layout: its
+    caches stack layers under ``periods`` / ``self`` / ``cross`` along a
+    leading dim, the port's never do, so no leaf here has that offset.
+    ``index`` (a step count, a host int here) replicates."""
+    dp = dp_axis_names(mesh)
+
+    def one(path, leaf):
+        name = path[-1]
+        shape = tuple(getattr(leaf, "shape", ()))
+        rank = len(shape)
+        spec: list = [None] * rank
+        if name == "index" or rank == 0:
+            return NamedSharding(mesh, tuple(spec))
+        spec[0] = _shard_if(shape[0], dp, mesh)
+        if name in ("k", "v"):  # (B, S, KV, hd)
+            if seq_shard and rank >= 2:
+                spec[1] = _shard_if(shape[1], ("model",), mesh)
+            elif rank >= 3:
+                spec[2] = _shard_if(shape[2], ("model",), mesh)
+        elif name in ("c_kv", "k_pe"):
+            if seq_shard and rank >= 2:
+                spec[1] = _shard_if(shape[1], ("model",), mesh)
+        elif name in ("h", "conv"):  # rglru states: (..., W) width last
+            spec[rank - 1] = _shard_if(shape[rank - 1], ("model",), mesh)
+        elif name in ("C", "n"):  # mlstm: (B, H, dh[, dh])
+            if rank >= 2:
+                spec[1] = _shard_if(shape[1], ("model",), mesh)
+        return NamedSharding(mesh, tuple(spec))
+
+    return map_with_path(one, cache_shapes)
+
+
+def replicated(mesh) -> NamedSharding:
+    return NamedSharding(mesh, ())
+
+
+def shard_state(state: PyTree, shardings: PyTree) -> PyTree:
+    """Each tensor leaf of ``state`` as a DTensor on its sharding's mesh and
+    placements.  Every rank holds the same full leaf (one seed, or one
+    checkpoint), so each copies only its own block to its device and
+    nothing is sent between ranks (``NamedSharding.shard``); a non-tensor
+    leaf (a cache's host ``index``) stays as it is."""
+    return tree_map(lambda leaf, sh: sh.shard(leaf) if isinstance(leaf, torch.Tensor) else leaf, state, shardings)

@@ -36,7 +36,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import layers as L
 from repro_torch.nn import recurrent as R
-from repro_torch.nn.module import Scope
+from repro_torch.nn.module import Scope, constrain
 
 Params = Any
 
@@ -160,6 +160,10 @@ def apply_layer(p: Params, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig,
                 cache: Any = None, mode: str = "train") -> tuple[torch.Tensor, Any, torch.Tensor]:
     """Residual layer body. Returns (x, new_cache, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.seq_parallel and mode == "train":
+        # Megatron-SP: the residual stream stays sharded over 'model' on
+        # the sequence dim between blocks.
+        x = constrain(x, "batch", "residual_seq", None)
     h = L.norm_apply(p["pre_norm"], x, cfg)
     if spec.mixer == "gqa":
         mix, new_cache = L.attention_apply(p["mixer"], h, cfg, window=spec.window, cache=cache, mode=mode)
@@ -252,7 +256,7 @@ class LM:
             # Patches arrive at train/prefill; decode steps are text-only.
             pe = L.linear_apply(params["vlm_proj"], patches.to(x.dtype))
             x = torch.cat([pe, x], dim=1)
-        return x
+        return constrain(x, "batch", "seq", "act_embed")
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x = L.norm_apply(params["final_norm"], x, self.cfg)

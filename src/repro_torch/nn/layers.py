@@ -26,10 +26,12 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig, MLAConfig
 from repro_torch.kernels import ops
-from repro_torch.nn.module import Scope
+from repro_torch.nn.module import Scope, constrain, current_dp_groups
 
 Params = Any
 NEG_INF = -1e30
@@ -108,7 +110,10 @@ def embedding_apply(p: Params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.T
     # F.embedding, not table[tokens]: its backward on CUDA sums each row's
     # gradients in a fixed order, where indexing's accumulates with atomics,
     # so a training run and its restart from a checkpoint agree bit for bit.
-    x = F.embedding(tokens, p["table"]).to(cdtype(cfg))
+    # On a mesh the lookup reads a vocab-replicated table: DTensor's lookup
+    # into a vocab-sharded one gives a masked partial whose gradient it
+    # cannot redistribute.
+    x = F.embedding(tokens, constrain(p["table"], None, "embed")).to(cdtype(cfg))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
     return x
@@ -185,6 +190,11 @@ def make_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype, device="cuda") 
     }
 
 
+def _shards(x: DTensor, dim: int) -> int:
+    """How many ways the DTensor ``x`` splits its dim ``dim``."""
+    return math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements) if p.is_shard(dim))
+
+
 def _attend(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,  # (B, T, K, D)
@@ -192,6 +202,14 @@ def _attend(
     mask: torch.Tensor,  # (B or 1, S, T) boolean, True = attend
     cfg: ArchConfig,
 ) -> torch.Tensor:
+    # On a mesh: the heads split as `out` (and its gradient) hold them.
+    q = constrain(q, "batch", None, "act_heads", None)
+    if _split(q, k, v):
+        if isinstance(q, DTensor) and k.shape[2] % _shards(q, 2):
+            # Blocks hold whole KV groups: where the heads' split does not
+            # divide KV, k and v are repeated to all H heads first.
+            k, v = (t.repeat_interleave(q.shape[2] // k.shape[2], dim=2) for t in (k, v))
+        return _on_blocks(lambda *a: _attend(*a, cfg), q, (k, 2), (v, 2), (mask, None))
     b, s, h, dh = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -205,6 +223,62 @@ def _attend(
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(b, s, h, dh)
+
+
+def _split(*xs) -> bool:
+    """Whether any of ``xs`` is a DTensor split on some mesh dim."""
+    return any(isinstance(t, DTensor) and not all(p.is_replicate() for p in t.placements) for t in xs)
+
+
+def _on_blocks(fn, q, *others):
+    """``fn(q, *others)`` on a mesh, each device computing its own (batch,
+    heads) block of q with the plain attention, as XLA partitions it.
+    DTensor's own rules cannot: the products fold batch and heads into one
+    dim, which they cannot split on both.  ``others`` are (tensor, its
+    heads dim or None) pairs, each brought to q's block (a leading dim of 1,
+    a mask's, stays whole)."""
+    mesh = next(t.device_mesh for t in (q, *(o for o, _ in others)) if isinstance(t, DTensor))
+    q = _as_dtensor(q, mesh)
+
+    def block(t, heads):
+        return [Shard(0) if p.is_shard(0) and t.shape[0] > 1 else Shard(heads) if p.is_shard(2) and heads is not None
+                else Replicate() for p in q.placements]
+
+    args = [q] + [_as_dtensor(t, mesh) for t, _ in others]
+    return _local(fn, block(q, 2), [block(t, h) for t, (_, h) in zip(args, [(q, 2), *others])], args)
+
+
+def _as_dtensor(t, mesh) -> DTensor:
+    return t if isinstance(t, DTensor) else DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _local(fn, out_placements, in_placements, args):
+    """``fn`` run by ``local_map`` on each device's blocks of ``args``
+    (redistributed to ``in_placements``), its gradients made contiguous
+    where they cross the blocks' edges."""
+    contig = lambda t: _ContiguousGrad.apply(t) if t.requires_grad else t
+
+    def run(*a):
+        out = fn(*map(contig, a))
+        return tuple(map(contig, out)) if isinstance(out, tuple) else contig(out)
+
+    return local_map(run, out_placements=out_placements, in_placements=tuple(in_placements),
+                     device_mesh=args[0].device_mesh, redistribute_inputs=True)(*args)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose gradient is made contiguous: gradients that cross a
+    block's edge are strided views (of a replicated gradient, or of a
+    permuted product), which DTensor's and the attention's reshapes of them
+    cannot take."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
 
 
 def _causal_window_mask(s: int, t: int, offset: int, window: int, device=None) -> torch.Tensor:
@@ -290,6 +364,7 @@ def attention_apply(
             k = apply_rope(k, cos, sin)
         cache.append(k[:, 0], v[:, 0])  # the (B, KV, hd) token
         out = cache.attend(q.transpose(1, 2).contiguous()).transpose(1, 2).to(dt)
+        out = constrain(out, "batch", None, "act_heads", None)
         y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
         return y, cache
 
@@ -357,6 +432,7 @@ def attention_apply(
                 cv[:, :s] = v.to(cv.dtype)
             new_cache = {"k": ck, "v": cv, "index": s}
 
+    out = constrain(out, "batch", None, "act_heads", None)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
     return y, new_cache
 
@@ -396,6 +472,7 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         if "b_up" in p:
             h = h + p["b_up"].to(dt)
         h = _gelu(h)
+    h = constrain(h, "batch", None, "act_ff")
     y = h @ p["w_down"].to(dt)
     if "b_down" in p:
         y = y + p["b_down"].to(dt)
@@ -447,7 +524,12 @@ def _rms_vec(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 def _mla_attend(q_nope, q_pe, k_nope, k_pe, v, mask, m: MLAConfig) -> torch.Tensor:
     """softmax(mask((q_nope . k_nope + q_pe . k_pe) / sqrt(nope + rope))) v,
     the rope key shared by every head; fp32 scores, probabilities in the
-    compute dtype."""
+    compute dtype.  On a mesh, each device attends its (batch, heads)
+    block (``_on_blocks``)."""
+    q_nope = constrain(q_nope, "batch", None, "act_heads", None)
+    if _split(q_nope, q_pe, k_nope, k_pe, v):
+        return _on_blocks(lambda *a: _mla_attend(*a, m), q_nope, (q_pe, 2), (k_nope, 2), (k_pe, None), (v, 2),
+                          (mask, None))
     scores = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
               + torch.einsum("bshk,btk->bhst", q_pe, k_pe)).float()
     scores = scores / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
@@ -554,11 +636,12 @@ def moe_counts() -> dict[str, int]:
 
 
 class MoERoute(NamedTuple):
-    """The assignments of one dispatch group, stably sorted by expert:
-    ``order`` maps each sorted position to its flat (token, choice) index
-    token * k + j; ``expert``, ``slot``, ``keep`` (slot < ``cap``) and the
-    normalised ``gate`` in the compute dtype are in sorted order; ``aux``
-    is the group's load-balance loss."""
+    """The assignments of ``g`` dispatch groups, each stably sorted by
+    expert on its own (every field leads with the group dim): ``order``
+    maps each sorted position to its flat (token, choice) index
+    token * k + j within the group; ``expert``, ``slot``, ``keep`` (slot <
+    ``cap``) and the normalised ``gate`` in the compute dtype are in sorted
+    order; ``aux`` is the load-balance loss averaged over the groups."""
 
     order: torch.Tensor
     expert: torch.Tensor
@@ -569,40 +652,119 @@ class MoERoute(NamedTuple):
     cap: int
 
 
-def moe_route(p: Params, xf: torch.Tensor, cfg: ArchConfig) -> MoERoute:
-    """Route the tokens ``xf`` (T, d) of one dispatch group: fp32 router
-    logits; sigmoid or softmax scores, their top k, gates normalised
-    (+1e-9); the Switch aux loss E * sum_e f_e p_e from the softmax
-    probabilities and the top-1 one-hot; the (token, choice) assignments
-    stably sorted by expert, each taking the next slot of its expert's
-    ``moe_capacity``, kept below it."""
+def moe_route(p: Params, xg: torch.Tensor, cfg: ArchConfig) -> MoERoute:
+    """Route the tokens ``xg`` (g, Tg, d), each group's on their own: fp32
+    router logits; sigmoid or softmax scores, their top k, gates normalised
+    (+1e-9); the Switch aux loss E * sum_e f_e p_e of each group from the
+    softmax probabilities and the top-1 one-hot, averaged over the groups;
+    each group's (token, choice) assignments stably sorted by expert, each
+    taking the next slot of its expert's ``moe_capacity(Tg)``, kept below it."""
+    if _split(xg):
+        return _route_groups(p, xg, cfg)
     mo = cfg.moe
-    t, k, e = xf.shape[0], mo.top_k, mo.n_experts
-    logits = (xf @ p["router"].to(xf.dtype)).float()  # (t, e)
+    g, t, _ = xg.shape
+    k, e = mo.top_k, mo.n_experts
+    logits = (xg @ p["router"].to(xg.dtype)).float()  # (g, t, e)
     scores = torch.sigmoid(logits) if mo.router_type == "sigmoid" else torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = torch.topk(scores, k, dim=-1)  # (t, k)
+    gate_vals, expert_idx = torch.topk(scores, k, dim=-1)  # (g, t, k)
     if mo.normalize_gates:
         gate_vals = gate_vals / (gate_vals.sum(dim=-1, keepdim=True) + 1e-9)
-    aux = e * torch.sum(torch.softmax(logits, dim=-1).mean(dim=0) * F.one_hot(expert_idx[:, 0], e).float().mean(dim=0))
+    me = torch.softmax(logits, dim=-1).mean(dim=1)  # (g, e)
+    ce = F.one_hot(expert_idx[..., 0], e).float().mean(dim=1)
+    aux = e * torch.mean(torch.sum(me * ce, dim=-1))
 
     cap = moe_capacity(t, cfg)
-    flat_e = expert_idx.reshape(t * k)
-    order = torch.argsort(flat_e, stable=True)
-    se = flat_e[order]
-    slot = torch.arange(t * k, device=xf.device) - torch.searchsorted(se, se, side="left")
-    return MoERoute(order, se, slot, slot < cap, gate_vals.reshape(t * k).to(xf.dtype)[order], aux, cap)
+    flat_e = expert_idx.reshape(g, t * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    gidx = torch.arange(g, device=xg.device)[:, None]
+    se = flat_e[gidx, order]
+    slot = torch.arange(t * k, device=xg.device) - torch.searchsorted(se, se, side="left")
+    gate = gate_vals.reshape(g, t * k).to(xg.dtype)[gidx, order]
+    return MoERoute(order, se, slot, slot < cap, gate, aux, cap)
+
+
+def _groups(x: DTensor) -> list:
+    """Placements that keep ``x``'s split of its leading (group) dim and
+    nothing else."""
+    return [p if p.is_shard(0) else Replicate() for p in x.placements]
+
+
+def _route_groups(p: Params, xg: DTensor, cfg: ArchConfig) -> MoERoute:
+    """``moe_route`` on a mesh: each device routes its own groups (the
+    group dim split over (pod, data)) with the plain routing, since
+    DTensor's index rules cannot take a dim split on two mesh dims; the
+    router is read whole.  ``aux``, a mean over groups, is the mean of the
+    devices' means."""
+    rows = _groups(xg)
+    whole = [Replicate()] * xg.device_mesh.ndim
+    aux = [Partial("avg") if p.is_shard(0) else Replicate() for p in rows]
+
+    def route(xl, router):
+        r = moe_route({"router": router}, xl, cfg)
+        return r.order, r.expert, r.slot, r.keep, r.gate, r.aux
+
+    out = _local(route, (rows,) * 5 + (aux,), [rows, whole], [xg, _as_dtensor(p["router"], xg.device_mesh)])
+    return MoERoute(*out, moe_capacity(xg.shape[1], cfg))
+
+
+def _dispatch(xg, order, expert, slot, keep, e: int, cap: int, k: int) -> torch.Tensor:
+    """Each group's kept assignments into their (expert, slot) rows of a
+    (g, E, C, d) buffer; the dropped ones all into a scratch row past the
+    end, which is cut off."""
+    g, _, d = xg.shape
+    gidx = torch.arange(g, device=xg.device)[:, None]
+    dest = torch.where(keep, expert * cap + slot, e * cap)  # (g, tk)
+    buf = torch.zeros((g, e * cap + 1, d), dtype=xg.dtype, device=xg.device)
+    buf = buf.index_put((gidx, dest), xg[gidx, order // k])  # group-local gather
+    return buf[:, :-1].reshape(g, e, cap, d)
+
+
+def _combine(y_buf, order, expert, slot, keep, gate, k: int) -> torch.Tensor:
+    """Each token's kept expert outputs (g, E, C, d), gated, added to zero
+    one by one in ascending expert order: (g, Tg, d)."""
+    g, e, cap, d = y_buf.shape
+    tk = order.shape[1]
+    tg = tk // k
+    dt = y_buf.dtype
+    y_buf = y_buf.reshape(g, e * cap, d)
+    gidx = torch.arange(g, device=y_buf.device)[:, None]
+    src = torch.where(keep, expert * cap + slot, 0)
+    gathered = y_buf[gidx, src] * (keep.to(dt) * gate)[..., None]  # (g, tk, d), sorted order
+    # A token's k assignments sit in the sorted order by ascending expert;
+    # their sorted positions (the inverse of ``order``), ascending, give
+    # that order token by token.
+    pos = torch.argsort(order, dim=-1).reshape(g, tg, k).sort(dim=-1).values
+    contrib = gathered[gidx, pos.reshape(g, tk)].reshape(g, tg, k, d)
+    y = torch.zeros((g, tg, d), dtype=dt, device=y_buf.device)
+    for j in range(k):
+        y = y + contrib[:, :, j]
+    return y
+
+
+def _per_group(fn, *args):
+    """``fn(*args)`` with every arg's leading dim a group: on a mesh each
+    device runs it on its own groups (DTensor's index rules cannot take a
+    dim split on two mesh dims), else as it is."""
+    if not _split(*args):
+        return fn(*args)
+    rows = _groups(args[0])
+    mesh = args[0].device_mesh
+    return _local(fn, rows, [rows] * len(args), [_as_dtensor(a, mesh) for a in args])
 
 
 def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k routed experts + optional shared experts. Returns (output,
-    aux load-balance loss).
+    """Top-k routed experts + optional shared experts, group-local dispatch.
+    Returns (output, aux load-balance loss).
 
-    The reference's semantics on one device, where its dispatch groups
-    (``current_dp_groups``, one per data-parallel shard) are one group of
-    all B*S tokens: ``moe_route``'s assignments, the kept ones dispatched
-    into (E, C) slots and dropped past them; the expert FFN a batched
-    product over the slots; gates cast to the compute dtype before the
-    combine; shared experts added after it.
+    The B*S tokens split into ``g`` dispatch groups — one per data-parallel
+    shard of the active mesh (``current_dp_groups``), else one group; a
+    token count that ``g`` does not divide takes one group, as the
+    reference does.  Within a group: ``moe_route``'s assignments, the kept
+    ones dispatched into (E, C) slots and dropped past them; the expert FFN
+    a batched product over the (g, E, C) slots; gates cast to the compute
+    dtype before the combine; shared experts added after it.  On a mesh the
+    group dim shards over (pod, data) and the expert (or expert ff) dim
+    over model, as the reference's constraints place them.
 
     The combine is deterministic: each token gathers the outputs of its
     kept assignments and adds them to zero one by one in ascending expert
@@ -614,32 +776,33 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor
     b, s, d = x.shape
     dt = x.dtype
     t, k, e = b * s, mo.top_k, mo.n_experts
-    xf = x.reshape(t, d)
-    r = moe_route(p, xf, cfg)
+    # DTensor cannot regroup a token dim that it has split over the model
+    # axis as well (XLA can): the tokens come in split over (pod, data) only.
+    xf = constrain(x, "batch", None, None).reshape(t, d)
+    g = current_dp_groups()
+    if g <= 1 or t % g:
+        g = 1
+    tg = t // g
+    xg = constrain(xf.reshape(g, tg, d), "dispatch", None, None)
+    r = moe_route(p, xg, cfg)
     cap = r.cap
     moe_apply.routed += t * k
-    moe_apply.dropped = moe_apply.dropped + (~r.keep).sum()
+    dropped = (~r.keep).sum()
+    moe_apply.dropped = moe_apply.dropped + (dropped.full_tensor() if isinstance(dropped, DTensor) else dropped)
 
-    # Dispatch: kept assignments into their (expert, slot) rows; the dropped
-    # ones all into a scratch row past the end, which is cut off.
-    dest = torch.where(r.keep, r.expert * cap + r.slot, e * cap)
-    buf = torch.zeros((e * cap + 1, d), dtype=dt, device=x.device)
-    buf = buf.index_put((dest,), xf[r.order // k])[:-1].reshape(e, cap, d)
+    buf = _per_group(lambda *a: _dispatch(*a, e, cap, k), xg, r.order, r.expert, r.slot, r.keep)
+    buf = constrain(buf, "dispatch", "experts", None, None)
 
-    h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["w_gate"].to(dt))) * torch.einsum(
-        "ecd,edf->ecf", buf, p["w_up"].to(dt))
-    y_buf = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(dt)).reshape(e * cap, d)
-
-    src = torch.where(r.keep, r.expert * cap + r.slot, 0)
-    gathered = y_buf[src] * (r.keep.to(dt) * r.gate)[:, None]  # (t*k, d), sorted order
-    # A token's k assignments sit in the sorted order by ascending expert;
-    # their sorted positions, ascending, give that order token by token.
-    pos = torch.empty_like(r.order)
-    pos[r.order] = torch.arange(t * k, device=x.device)
-    contrib = gathered[pos.reshape(t, k).sort(dim=-1).values]  # (t, k, d)
-    y = torch.zeros((t, d), dtype=dt, device=x.device)
-    for j in range(k):
-        y = y + contrib[:, j]
+    h = F.silu(torch.einsum("gecd,edf->gecf", buf, p["w_gate"].to(dt))) * torch.einsum(
+        "gecd,edf->gecf", buf, p["w_up"].to(dt))
+    # Both candidate shardings: experts over model where E divides it
+    # (deepseek), else the expert ff dim (grok).
+    h = constrain(h, "dispatch", "experts", None, "expert_ff")
+    y_buf = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
+    y_buf = constrain(y_buf, "dispatch", "experts", None, None)
+    y = _per_group(lambda *a: _combine(*a, k), y_buf, r.order, r.expert, r.slot, r.keep, r.gate)
+    # (and its gradient comes back split over (pod, data) only, for the same reason)
+    y = constrain(constrain(y, "dispatch", None, None).reshape(t, d), "batch", None)
 
     if mo.n_shared:
         sp = p["shared"]

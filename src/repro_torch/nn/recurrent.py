@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.nn.layers import _gelu
-from repro_torch.nn.module import Scope
+from repro_torch.nn.module import Scope, constrain
 
 Params = Any
 
@@ -208,14 +208,19 @@ def mlstm_block_apply(
     x_conv, new_conv = conv1d_apply(p["conv"], x_in, conv_state)
     x_conv = F.silu(x_conv)
 
-    # Heads-major (B, H, S, dh) and (B, H, S), as the kernel takes them.
-    heads = lambda t: t.reshape(b, s, nh, dh).float().transpose(1, 2).contiguous()
+    # Heads-major (B, H, S, dh) and (B, H, S), as the kernel takes them; on
+    # a mesh, these and h (and h's gradient) are whole sums: the scan writes
+    # its steps into a tensor laid out as q, which DTensor cannot do for a
+    # partial sum.
+    heads = lambda t: constrain(t.reshape(b, s, nh, dh).float().transpose(1, 2).contiguous(),
+                                "batch", "act_heads", None, None)
     q = heads(x_conv @ p["wq"].to(dt))
     k = heads(x_conv @ p["wk"].to(dt)) / math.sqrt(dh)
     v = heads(x_in @ p["wv"].to(dt))
     if_pre = (x_conv @ p["w_if"].to(dt) + p["b_if"].to(dt)).float()
-    ip = if_pre[..., :nh].transpose(1, 2).contiguous()
-    fp = (-F.softplus(-if_pre[..., nh:])).transpose(1, 2).contiguous()  # log sigmoid forget gate
+    gates = lambda t: constrain(t.transpose(1, 2).contiguous(), "batch", "act_heads", None)
+    ip = gates(if_pre[..., :nh])
+    fp = gates(-F.softplus(-if_pre[..., nh:]))  # log sigmoid forget gate
 
     carry = None if state is None else (state["C"], state["n"], state["m"])
     if s == 1:
@@ -227,7 +232,7 @@ def mlstm_block_apply(
         h, carry = ops.mlstm_chunkwise(q, k, v, ip, fp, carry)
     else:
         h, carry = ref.mlstm_ref(q, k, v, ip, fp, carry)
-    h = h.transpose(1, 2).reshape(b, s, dp).to(dt)
+    h = constrain(h, "batch", "act_heads", None, None).transpose(1, 2).reshape(b, s, dp).to(dt)
 
     h = h + p["skip"].to(dt) * x_conv
     y = (h * F.silu(z)) @ p["w_down"].to(dt)
@@ -286,7 +291,8 @@ def slstm_block_apply(
 
     hs = []
     for t in range(s):
-        hh = h.reshape(b, nh, dh)
+        # On a mesh, an h split over its width cannot regroup into heads.
+        hh = constrain(h, "batch", None).reshape(b, nh, dh)
         rec = {g: torch.einsum("bhd,hde->bhe", hh, r_mats[g]).reshape(b, d) for g in "ifzo"}
         ip = pre["i"][:, t] + rec["i"]
         fp = pre["f"][:, t] + rec["f"]

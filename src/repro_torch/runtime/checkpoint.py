@@ -33,8 +33,17 @@ batched ``get_many``.
 
 Restore takes a **template tree** (a train state of the right shapes) and
 fills leaves by keypath, each on its template leaf's device: the stored
-arrays are full logical arrays.  (The reference's ``restore_sharded``, a
-restore onto a device mesh, waits for the port's multi-device slice.)
+arrays are full logical arrays.  ``restore_sharded`` places each leaf on a
+``DeviceMesh`` instead (elastic restore: the mesh need not be the one that
+saved it), and a save of DTensor leaves stores their full logical arrays.
+Under a process group of more than one rank ``save`` is collective: every
+rank gathers the full leaves, global rank 0 alone writes them, and all
+ranks leave together, so the bytes are those of a one-process save.
+
+bfloat16 leaves, which numpy lacks, are stored as their 16-bit patterns
+under the dtype name ``"bfloat16"`` (numpy's name for it where ml_dtypes
+is loaded, as in the JAX package), so such checkpoints too cross between
+the packages.
 
 Leaves are named as ``jax.tree_util.keystr`` names them and packed in jax's
 flattening order (``repro_torch.tree``), with numpy's dtype strings, so for
@@ -54,6 +63,8 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.sched import StreamClass
 from repro_torch.core.store import TwoLevelStore, WriteMode
@@ -71,23 +82,47 @@ def _flatten_with_names(tree: PyTree) -> list[tuple[str, Any]]:
     return [(keystr(p), v) for p, v in flatten_with_path(tree)]
 
 
-def _to_host(leaf) -> np.ndarray:
-    """A leaf as a host array: tensors are copied off their device."""
+def _to_host(leaf) -> tuple[np.ndarray, str]:
+    """A leaf as a host array and its manifest dtype name: tensors are
+    copied off their device (a DTensor gathered whole first), bfloat16 as
+    its bit pattern."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).cpu().numpy(), "bfloat16"
+        leaf = leaf.cpu().numpy()
+    arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
 
 
-def _like(arr: np.ndarray, leaf):
+def _host_array(raw: bytes, meta: dict) -> np.ndarray:
+    """A stored leaf's bytes as a host array (bfloat16 as its bit pattern)."""
+    dtype = np.int16 if meta["dtype"] == "bfloat16" else np.dtype(meta["dtype"])
+    return np.frombuffer(raw, dtype=dtype).reshape(meta["shape"])
+
+
+def _tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    t = torch.from_numpy(arr.copy())
+    return t.view(torch.bfloat16) if dtype_name == "bfloat16" else t
+
+
+def _like(arr: np.ndarray, dtype_name: str, leaf):
     """A restored array, placed as its template leaf is: a tensor on the
     leaf's device, or a host array."""
     if isinstance(leaf, torch.Tensor):
-        return torch.from_numpy(arr.copy()).to(leaf.device)
-    return arr.copy()
+        return _tensor(arr, dtype_name).to(leaf.device)
+    return arr.copy().view(np.dtype(dtype_name))
+
+
+def _is_writer() -> bool:
+    """Global rank 0, or no process group at all."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _pack_chunks(
-    named: list[tuple[str, np.ndarray]], chunk_bytes: int
+    named: list[tuple[str, np.ndarray, str]], chunk_bytes: int
 ) -> tuple[dict[str, dict], list[bytes]]:
     """Greedy-pack leaf bytes into ~``chunk_bytes`` chunks, in leaf order.
 
@@ -107,13 +142,13 @@ def _pack_chunks(
             parts = []
             filled = 0
 
-    for name, arr in named:
+    for name, arr, dtype_name in named:
         raw = np.ascontiguousarray(arr).tobytes()
         if filled and filled + len(raw) > chunk_bytes:
             flush()
         leaves[name] = {
             "shape": list(arr.shape),
-            "dtype": str(arr.dtype),
+            "dtype": dtype_name,
             "chunk": len(chunks),
             "offset": filled,
             "size": len(raw),
@@ -184,34 +219,45 @@ class CheckpointManager:
         snapshot happens here (the only part that must see consistent
         training state); chunk packing and store puts run on the
         background lane and ``save`` returns immediately.
+
+        Under a process group of more than one rank every rank calls it:
+        each gathers the full leaves, rank 0 alone writes them, and all
+        wait at a barrier before returning.
         """
         t0 = time.perf_counter()
-        named = [(name, _to_host(leaf)) for name, leaf in _flatten_with_names(state)]
-        if self.mode == "async":
-            # Surface failures of already-finished saves without blocking on
-            # the one still in flight — the critical path stays snapshot-only.
-            self._join_pending(wait=False)
-            nbytes = sum(a.nbytes for _, a in named)
-            if self._arb_pool is not None:
-                with self._pending_lock:
-                    over = self._inflight_bytes + nbytes > max(
-                        self._arb_pool.budget, nbytes
-                    )
-                if over:
-                    # Staging budget exhausted: drain the lane before
-                    # snapshotting another copy — the arbiter throttles
-                    # async staging instead of letting it balloon.
-                    self._join_pending(wait=True)
-            with self._pending_lock:
-                self._inflight_bytes += nbytes
-            fut = self._bg.submit(self._bg_save, step, named, nbytes)
-            with self._pending_lock:
-                self._pending.append(fut)
-        else:
-            self._serialize_and_put(step, named)
+        named = [(name, *_to_host(leaf)) for name, leaf in _flatten_with_names(state)]
+        if _is_writer():
+            self._put(step, named)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
         self.save_critical_s.append(time.perf_counter() - t0)
 
-    def _bg_save(self, step: int, named: list[tuple[str, np.ndarray]], nbytes: int) -> None:
+    def _put(self, step: int, named: list[tuple[str, np.ndarray, str]]) -> None:
+        """Write the snapshot ``named``: now, or on the background lane."""
+        if self.mode != "async":
+            self._serialize_and_put(step, named)
+            return
+        # Surface failures of already-finished saves without blocking on
+        # the one still in flight — the critical path stays snapshot-only.
+        self._join_pending(wait=False)
+        nbytes = sum(a.nbytes for _, a, _ in named)
+        if self._arb_pool is not None:
+            with self._pending_lock:
+                over = self._inflight_bytes + nbytes > max(
+                    self._arb_pool.budget, nbytes
+                )
+            if over:
+                # Staging budget exhausted: drain the lane before
+                # snapshotting another copy — the arbiter throttles
+                # async staging instead of letting it balloon.
+                self._join_pending(wait=True)
+        with self._pending_lock:
+            self._inflight_bytes += nbytes
+        fut = self._bg.submit(self._bg_save, step, named, nbytes)
+        with self._pending_lock:
+            self._pending.append(fut)
+
+    def _bg_save(self, step: int, named: list[tuple[str, np.ndarray, str]], nbytes: int) -> None:
         try:
             self._serialize_and_put(step, named)
         finally:
@@ -246,7 +292,7 @@ class CheckpointManager:
         self._arb_pool = pool
         return pool
 
-    def _serialize_and_put(self, step: int, named: list[tuple[str, np.ndarray]]) -> None:
+    def _serialize_and_put(self, step: int, named: list[tuple[str, np.ndarray, str]]) -> None:
         leaves, chunks = _pack_chunks(named, self.chunk_bytes)
         manifest = {"chunks": [len(c) for c in chunks], "leaves": leaves}
         mode = self._write_mode()
@@ -318,6 +364,34 @@ class CheckpointManager:
         partially is read leaf-by-leaf with ``get_range`` — restore byte
         traffic follows the template, not the checkpoint.
         """
+        return self._restore(template, step, lambda path, leaf, arr, dtype_name: _like(arr, dtype_name, leaf))
+
+    def restore_sharded(self, template: PyTree, shardings: PyTree, step: int | None = None) -> tuple[int, PyTree]:
+        """Elastic restore: place each leaf with its (possibly new) sharding.
+
+        ``shardings`` is a tree of ``nn.module.NamedSharding`` over the
+        template's structure (``launch.steps.state_shardings``).  Because
+        checkpoints hold full logical arrays, the target mesh may have
+        another size than the one that saved them: every rank restores each
+        full leaf through the ranged reads of ``restore`` into host memory
+        and copies only its own block of it to its device
+        (``NamedSharding.shard``), as the reference's ``device_put`` from
+        the host moves each device's shard; nothing is sent between ranks.
+        Template leaves may be meta tensors; chunks not referenced by the
+        template are never read.
+        """
+        by_name = {keystr(p): sh for p, sh in flatten_with_path(shardings)}
+
+        def place(path, leaf, arr, dtype_name):
+            sh = by_name[keystr(path)]
+            block = sh.local_slices(arr.shape)
+            return sh.wrap(_tensor(arr[block] if block else arr, dtype_name), arr.shape)
+
+        return self._restore(template, step, place)
+
+    def _restore(self, template: PyTree, step: int | None, place) -> tuple[int, PyTree]:
+        """``restore`` with ``place(path, template leaf, host array, dtype
+        name)`` making each restored leaf."""
         self._join_pending()
         if step is None:
             step = self.latest_step()
@@ -329,7 +403,7 @@ class CheckpointManager:
             # Pre-chunked monolithic layout (flat keypath -> {offset,size,...}
             # manifest + one `leaves` blob) from an older run on the same
             # PFS root — still restorable.
-            return step, self._restore_legacy(prefix, manifest, template, step)
+            return step, self._restore_legacy(prefix, manifest, template, step, place)
         leaves_meta: dict[str, dict] = manifest["leaves"]
         chunk_sizes: list[int] = manifest["chunks"]
 
@@ -381,18 +455,18 @@ class CheckpointManager:
                 raw = blobs[c][meta["offset"] : meta["offset"] + meta["size"]]
             else:
                 raw = ranged[name]
-            arr = np.frombuffer(raw, dtype=np.dtype(meta["dtype"])).reshape(meta["shape"])
+            arr = _host_array(raw, meta)
             want = getattr(leaf, "shape", None)
             if want is not None and tuple(want) != tuple(arr.shape):
                 raise ValueError(
                     f"shape mismatch for {name!r}: checkpoint {arr.shape} vs template {want}"
                 )
-            return _like(arr, leaf)
+            return place(path, leaf, arr, meta["dtype"])
 
         restored = map_with_path(fill, template)
         return step, restored
 
-    def _restore_legacy(self, prefix: str, manifest: dict, template: PyTree, step: int) -> PyTree:
+    def _restore_legacy(self, prefix: str, manifest: dict, template: PyTree, step: int, place) -> PyTree:
         """Fill a template from the pre-chunked monolithic-blob layout."""
         def fill(path, leaf):
             name = keystr(path)
@@ -404,13 +478,13 @@ class CheckpointManager:
                     f"template/checkpoint structure mismatch"
                 ) from None
             raw = self.store.get_range(f"{prefix}/leaves", meta["offset"], meta["size"])
-            arr = np.frombuffer(raw, dtype=np.dtype(meta["dtype"])).reshape(meta["shape"])
+            arr = _host_array(raw, meta)
             want = getattr(leaf, "shape", None)
             if want is not None and tuple(want) != tuple(arr.shape):
                 raise ValueError(
                     f"shape mismatch for {name!r}: checkpoint {arr.shape} vs template {want}"
                 )
-            return _like(arr, leaf)
+            return place(path, leaf, arr, meta["dtype"])
 
         return map_with_path(fill, template)
 

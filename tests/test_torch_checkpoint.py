@@ -1,8 +1,9 @@
 """The port's two-level checkpoint manager (``repro_torch.runtime``) on the
-CPU: the ports of ``tests/test_checkpoint.py`` (all but its mesh tests:
-``restore_sharded`` is not ported), and the JAX package's manager on the
-same state — the same leaf names in the same order, the same manifest and
-chunk bytes, and checkpoints that restore in the other package.
+CPU: the ports of ``tests/test_checkpoint.py``, its elastic restores onto
+meshes of ``gloo`` ranks included (``tests/torch_ranks.py``), and the JAX
+package's manager on the same state — the same leaf names in the same
+order, the same manifest and chunk bytes, and checkpoints that restore in
+the other package, sharded too.
 """
 
 import json
@@ -22,7 +23,9 @@ import repro_torch.configs as tcfgs
 from repro_torch import tree as T
 from repro_torch.core import TwoLevelStore as TStore
 from repro_torch.launch.train import port_state, reference_state
+from repro_torch.optim.adamw import AdamW as TAdamW
 from repro_torch.runtime import CheckpointManager
+from torch_ranks import run_ranks
 
 
 def tree(seed=0):
@@ -320,3 +323,151 @@ def test_checkpoint_restores_in_the_other_package(tmp_path, train_state, writer)
             step, got = JCheckpointManager(st, tag="t").restore(jstate)
         assert step == 3
         assert_tree_equal(got, jax.tree_util.tree_map(np.asarray, jstate))
+
+
+@pytest.fixture()
+def one_rank(tmp_path):
+    """A one-rank ``gloo`` process group in this process and a 1 x 1
+    ``(data, model)`` mesh over it, torn down after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import _mk
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}", rank=0, world_size=1)
+    try:
+        yield _mk((1, 1), ("data", "model"), "cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+class TestElasticRestore:
+    def test_restore_sharded_places_on_device(self, store, one_rank):
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.nn.module import NamedSharding
+
+        cm = CheckpointManager(store, tag="t")
+        state = tree()
+        cm.save(1, state)
+        shardings = T.tree_map(lambda leaf: NamedSharding(one_rank, ("model",) if np.ndim(leaf) else ()), state)
+        step, placed = cm.restore_sharded(state, shardings)
+        assert step == 1
+        leaf = placed["params"]["w"]
+        assert isinstance(leaf, DTensor) and leaf.device_mesh is one_rank
+        np.testing.assert_array_equal(leaf.full_tensor().numpy(), state["params"]["w"])
+        assert_tree_equal(T.tree_map(lambda x: x.full_tensor(), placed), state)
+
+
+ELASTIC_RANKS = """
+import shutil
+import numpy as np
+from repro_torch import tree as T
+from repro_torch.configs import get_reduced, make_model
+from repro_torch.core import TwoLevelStore
+from repro_torch.launch import steps as S
+from repro_torch.launch.mesh import _mk
+from repro_torch.nn.module import NamedSharding
+from repro_torch.optim.adamw import AdamW
+from repro_torch.runtime import CheckpointManager
+
+KW = dict(mem_capacity_bytes=8 * 2**20, block_bytes=2**20, n_pfs_servers=2, stripe_bytes=256 * 1024)
+
+
+def opened(name):
+    # Each rank reads its own copy of the PFS root, as ranks on other hosts
+    # read a shared file system.
+    root = TMP / f"{name}_of{WORLD}_rank{RANK}"
+    shutil.copytree(TMP / name, root)
+    return TwoLevelStore(str(root), **KW)
+
+
+mesh = _mk((1, WORLD), ("data", "model"), "cpu")
+cfg = get_reduced("qwen3_8b")
+template, axes = S.init_state(make_model(cfg), cfg, AdamW(), device="meta")
+sh = S.state_shardings(template, axes, mesh)
+want = torch.load(TMP / "state.pt")
+with opened("one") as st:
+    step, got = CheckpointManager(st, tag="t").restore_sharded(template, sh)
+out = {"step": step,
+       "equal": all(torch.equal(a.full_tensor(), b) for a, b in zip(T.leaves(got), T.leaves(want))),
+       "w_gate": got["params"]["prefix_0"]["ffn"]["w_gate"].to_local().numpy().tobytes().hex(),
+       "sharded_leaves": sum(any(p.is_shard() for p in x.placements) for x in T.leaves(got)),
+       # Each local tensor owns just its block: no rank copied a whole leaf.
+       "block_only": all(x.to_local().untyped_storage().nbytes() == x.to_local().numel() * x.element_size()
+                         for x in T.leaves(got))}
+if WORLD == 4:  # save back from the 4-rank DTensor state: rank 0 writes, all wait
+    with TwoLevelStore(str(TMP / "from4"), **KW) as st:
+        CheckpointManager(st, tag="t").save(step, got)
+# A checkpoint the JAX package wrote, in its layout: dim 0 over `model` where it divides.
+jwant = torch.load(TMP / "jax_state.pt")
+jsh = T.tree_map(lambda x: NamedSharding(mesh, ("model",) if x.ndim and x.shape[0] % WORLD == 0 else ()), jwant)
+with opened("jax") as st:
+    jstep, jgot = CheckpointManager(st, tag="t").restore_sharded(jwant, jsh)
+out["jax_step"] = jstep
+out["jax_equal"] = all(torch.equal(a.full_tensor(), b) and a.dtype == b.dtype
+                       for a, b in zip(T.leaves(jgot), T.leaves(jwant)))
+out["jax_sharded_leaves"] = sum(any(p.is_shard() for p in x.placements) for x in T.leaves(jgot))
+emit(out)
+"""
+
+
+def test_elastic_restore_across_mesh_sizes(tmp_path, train_state):
+    """Save on 1 process; ``restore_sharded`` onto 2- and 4-rank meshes:
+    every leaf equal, ``ffn/w_gate`` in n distinct local shards, each
+    rank's local tensors holding only their own blocks.  The
+    4-rank DTensor state saved again (rank 0 writes) is the same bytes as
+    the 1-process save and restores on 1 process equal.  A checkpoint the
+    JAX package wrote restores sharded on both meshes."""
+    from repro_torch.launch.steps import init_state
+
+    cfg = tcfgs.get_reduced("qwen3_8b")
+    state, _ = init_state(tcfgs.make_model(cfg), cfg, TAdamW(), seed=0, device="cpu")
+    state["opt"]["m"] = T.tree_map(lambda x: torch.randn_like(x), state["opt"]["m"])
+    torch.save(state, tmp_path / "state.pt")
+    with mk_store(TStore, tmp_path / "one") as st:
+        CheckpointManager(st, tag="t").save(5, state)
+    jstate, tstate, tcfg = train_state
+    with mk_store(JStore, tmp_path / "jax") as st:
+        JCheckpointManager(st, tag="t").save(3, jstate)
+    jref = reference_state(tstate, tcfg)
+    torch.save(T.tree_map(lambda x: torch.as_tensor(np.asarray(x)), jref), tmp_path / "jax_state.pt")
+
+    for world in (2, 4):
+        outs = run_ranks(tmp_path, world, ELASTIC_RANKS)
+        assert all(o["step"] == 5 and o["equal"] and o["jax_step"] == 3 and o["jax_equal"] for o in outs), outs
+        assert len({o["w_gate"] for o in outs}) == world
+        assert outs[0]["sharded_leaves"] > 0 and outs[0]["jax_sharded_leaves"] > 0
+        assert all(o["block_only"] for o in outs), outs
+
+    prefix = "ckpt/t/step_00000005/"
+    with mk_store(TStore, tmp_path / "one") as one, mk_store(TStore, tmp_path / "from4") as four:
+        names = sorted(n for n in one.list_files() if n.startswith(prefix))
+        assert names == sorted(n for n in four.list_files() if n.startswith(prefix))
+        for n in names:
+            assert one.get(n) == four.get(n), n
+        step, back = CheckpointManager(four, tag="t").restore(T.tree_map(torch.zeros_like, state))
+    assert step == 5
+    assert_tree_equal(back, state)
+
+
+def test_bfloat16_leaves_round_trip_and_cross_packages(tmp_path):
+    """bf16 leaves, which numpy lacks, are stored as their bit patterns
+    under the dtype name ``bfloat16``: they restore to the same bits in the
+    port and as ml_dtypes' bfloat16 in the JAX package, and back."""
+    t = torch.randn(6, 4, generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    state = {"w": t, "b": torch.ones(4)}
+    with mk_store(TStore, tmp_path / "s") as st:
+        CheckpointManager(st, tag="t").save(1, state)
+        _, got = CheckpointManager(st, tag="t").restore(T.tree_map(torch.zeros_like, state))
+        manifest = json.loads(st.get("ckpt/t/step_00000001/manifest"))
+    assert got["w"].dtype == torch.bfloat16 and torch.equal(got["w"], t)
+    assert manifest["leaves"]["['w']"]["dtype"] == "bfloat16"
+    with mk_store(JStore, tmp_path / "s") as st:
+        _, jgot = JCheckpointManager(st, tag="t").restore({"w": jnp.zeros((6, 4), jnp.bfloat16),
+                                                          "b": np.zeros(4, np.float32)})
+        assert str(jgot["w"].dtype) == "bfloat16"
+        np.testing.assert_array_equal(jgot["w"].view(np.int16), t.view(torch.int16).numpy())
+        JCheckpointManager(st, tag="t").save(2, {"w": jgot["w"], "b": jgot["b"]})
+    with mk_store(TStore, tmp_path / "s") as st:
+        step, back = CheckpointManager(st, tag="t").restore(T.tree_map(torch.zeros_like, state))
+    assert step == 2 and torch.equal(back["w"], t)

@@ -286,8 +286,8 @@ def test_cuda_moe_matches_cpu_with_drops(cuda_device, arch):
     params, _ = init_with_axes(lambda s: L.moe_init(s, "ffn", cfg), 0, device="cpu")
     x = torch.randn((4, 64, cfg.d_model), generator=torch.Generator().manual_seed(0))
     on_card = tree_map(lambda t: t.to(cuda_device), params["ffn"])
-    want_route = L.moe_route(params["ffn"], x.reshape(-1, cfg.d_model), cfg)
-    got_route = L.moe_route(on_card, x.to(cuda_device).reshape(-1, cfg.d_model), cfg)
+    want_route = L.moe_route(params["ffn"], x.reshape(1, -1, cfg.d_model), cfg)  # one dispatch group
+    got_route = L.moe_route(on_card, x.to(cuda_device).reshape(1, -1, cfg.d_model), cfg)
     assert torch.equal(got_route.order.cpu(), want_route.order)
     assert torch.equal(got_route.keep.cpu(), want_route.keep) and not bool(want_route.keep.all())
     want, want_aux = L.moe_apply(params["ffn"], x, cfg)
@@ -759,3 +759,85 @@ def test_cuda_compression_matches_cpu(cuda_device):
         assert outs["cuda"][2] == outs["cpu"][2]
         for a, b in zip(outs["cuda"][0] + outs["cuda"][1], outs["cpu"][0] + outs["cpu"][1]):
             assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+@pytest.fixture()
+def card_mesh(cuda_device, tmp_path):
+    """A one-rank NCCL process group and a 1 x 1 ("data", "model") mesh on
+    the card, torn down after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import _mk
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}", rank=0, world_size=1)
+    try:
+        yield _mk((1, 1), ("data", "model"), "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_train_step_matches_plain(card_mesh):
+    """Reduced starcoder2 in fp32: two steps of ``make_sharded_train_step`` on
+    DTensor state over a world-size-1 NCCL mesh equal two plain steps on the
+    card from the same state, loss and every state leaf to the bit."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.configs import get_reduced, make_model
+    from repro_torch.launch import steps as S
+    from repro_torch.optim.adamw import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_reduced("starcoder2_3b"), dtype="float32")
+    model, opt = make_model(cfg), AdamW(learning_rate=1e-3)
+    state, axes = S.init_state(model, cfg, opt, seed=0, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (4, 33))).cuda()
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    sh = S.state_shardings(state, axes, card_mesh)
+    dstate = S.shard_state(tree.tree_map(torch.clone, state), sh)
+    dbatch = S.shard_state(batch, S.batch_shardings(batch, card_mesh))
+    plain, sharded = S.make_train_step(model, cfg, opt), S.make_sharded_train_step(model, cfg, opt, sh)
+    for _ in range(2):
+        state, m = plain(state, batch)
+        dstate, dm = sharded(dstate, dbatch)
+        assert torch.equal(dm["loss"], m["loss"])
+    for (path, a), (_, b) in zip(tree.flatten_with_path(dstate), tree.flatten_with_path(state)):
+        assert torch.equal(a.full_tensor(), b), path
+
+
+@pytest.mark.cuda
+def test_cuda_restore_sharded_onto_card_mesh(card_mesh, tmp_path):
+    """A checkpoint of reduced qwen3's params (bf16 matrices, fp32 head)
+    restores onto the card's mesh from a meta template: DTensor leaves on
+    the card, each equal to the saved one, and greedy tokens served from
+    their local tensors equal those served from the originals."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.configs import get_reduced, make_model
+    from repro_torch.core import TwoLevelStore
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.serve import init_params
+    from repro_torch.nn.layers import cdtype
+    from repro_torch.nn.module import init_with_axes, matrix_cast
+    from repro_torch.runtime import CheckpointManager
+
+    cfg = get_reduced("qwen3_8b")
+    model = make_model(cfg)
+    params = init_params(model, seed=0, device="cuda")
+    template, axes = init_with_axes(model.init, 0, device="meta", cast=matrix_cast(cdtype(cfg), ("head",)))
+    with TwoLevelStore(str(tmp_path / "store"), mem_capacity_bytes=8 * 2**20, block_bytes=2**20) as st:
+        cm = CheckpointManager(st, tag="p")
+        cm.save(3, params)
+        step, got = cm.restore_sharded(template, S.state_shardings({"params": template}, axes, card_mesh)["params"])
+    assert step == 3
+    for (path, a), (_, b) in zip(tree.flatten_with_path(got), tree.flatten_with_path(params)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype, path
+        assert torch.equal(a.full_tensor(), b), path
+    local = tree.tree_map(lambda x: x.to_local(), got)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 24))).cuda()
+    out = [S.tiered_serve_loop(model, cfg, p, prompts, 8, window=8, page=4)[0] for p in (local, params)]
+    assert torch.equal(out[0], out[1])

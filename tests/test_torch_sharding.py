@@ -1,0 +1,563 @@
+"""The port's multi-device layer against the JAX package on the CPU:
+logical-axis resolution and its rule tables, the spec trees of the full-size
+configs on both production meshes, the cache and batch shardings, a train
+step on 8 ``gloo`` ranks, the MoE's group-local dispatch, and the dry-run's
+accounting.
+
+Multi-rank cases run as subprocesses (``tests/torch_ranks.py``); the JAX
+reference on an 8-device mesh runs in a subprocess of its own with 8 forced
+host devices, as ``tests/test_sharding.py`` runs it.  Tolerances: equality
+for specs, bytes and FLOP counts (the dry-run's against ``hlo_analysis``
+within 2%), 1e-5 relative to a leaf's largest magnitude for values.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AbstractMesh, PartitionSpec as P
+from torch.distributed.tensor import Replicate, Shard
+
+import repro.configs as jcfgs
+import repro.nn.module as jmod
+import repro_torch.configs as tcfgs
+import repro_torch.nn.module as tmod
+from repro.launch import steps as jsteps
+from repro.launch.hlo_analysis import analyze
+from repro.optim.adamw import AdamW as JAdamW
+from repro_torch import tree as T
+from repro_torch.launch import dryrun, steps as tsteps
+from repro_torch.launch.mesh import dp_size
+from repro_torch.nn.module import MeshShape, mesh_shape
+from repro_torch.optim.adamw import AdamW as TAdamW
+from torch_ranks import ROOT, run_ranks
+
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+# ---------------------------------------------------------------------------
+# Rule tables and resolution
+# ---------------------------------------------------------------------------
+
+RESOLVE_CASES = {
+    "divisible_dims_shard": (dict(data=4, model=16), ("embed", "ff"), (1024, 4096), (None, "model")),
+    "indivisible_dims_replicate": (dict(data=4, model=16), ("embed", "heads", "head_dim"), (896, 14, 64),
+                                   (None, None, None)),
+    "vocab_shards_when_divisible": (dict(data=2, model=16), ("vocab", "embed"), (129_280, 7168), ("model", None)),
+    "vocab_replicates_when_not": (dict(data=2, model=16), ("vocab", "embed"), (51_866, 1280), (None, None)),
+    "mesh_axis_used_once": (dict(model=8), ("vocab", "ff"), (1024, 4096), ("model", None)),
+    "missing_mesh_axis_replicates": (dict(data=4), ("embed", "ff"), (64, 4096), (None, None)),
+    "batch_axes_tuple": (dict(pod=2, data=16, model=16), ("batch", "seq"), (256, 4096), (("pod", "data"), None)),
+}
+
+
+@pytest.mark.parametrize("package", ["jax", "torch"])
+@pytest.mark.parametrize("case", sorted(RESOLVE_CASES))
+def test_shard_if_divisible(case, package):
+    """The reference's ``TestShardIfDivisible`` cases, through both packages'
+    ``resolve_axes``: the same entries (the reference's as a PartitionSpec)."""
+    shape, logical, dims, want = RESOLVE_CASES[case]
+    resolve = jmod.resolve_axes if package == "jax" else tmod.resolve_axes
+    got = resolve(logical, dims, MeshShape(**shape))
+    assert tuple(got) == want
+    if package == "torch":
+        assert got == want and type(got) is tuple
+
+
+def test_rule_tables_equal_the_reference():
+    assert tmod.DEFAULT_RULES == jmod.DEFAULT_RULES
+    assert tmod.FSDP_RULES == jmod.FSDP_RULES
+    assert tmod.RULE_SETS == jmod.RULE_SETS
+
+
+def test_placements_and_shard_shapes():
+    mesh = MeshShape(pod=2, data=16, model=16)
+    sh = tmod.NamedSharding(mesh, (("pod", "data"), None, "model"))
+    assert sh.placements() == (Shard(0), Shard(0), Shard(2))
+    assert tmod.NamedSharding(mesh, (None, "data")).placements() == (Replicate(), Shard(1), Replicate())
+    assert sh.shard_shape((256, 7, 32)) == (8, 7, 2)
+    assert tmod.NamedSharding(mesh, ()).shard_shape((3, 5)) == (3, 5)
+    assert mesh_shape(MeshShape(data=4, model=2)) == {"data": 4, "model": 2} and dp_size(mesh) == 32
+
+
+def test_constrain_off_mesh_and_on_plain_tensors():
+    x = torch.ones(2, 3)
+    assert tmod.constrain(x, "batch", "act_ff") is x  # off-mesh
+    assert tmod.current_dp_groups() == 1
+    with tmod.axis_rules(MeshShape(pod=2, data=4, model=2)):
+        assert tmod.current_dp_groups() == 8
+        assert tmod.constrain(x, "batch", "act_ff") is x  # a plain tensor stays as it is
+        with pytest.raises(ValueError, match="rank-2"):
+            tmod.constrain(x, "batch")
+    assert tmod.current_dp_groups() == 1
+
+
+# ---------------------------------------------------------------------------
+# Spec trees at full size
+# ---------------------------------------------------------------------------
+
+FULL_ARCHS = ["qwen3_8b", "deepseek_v3_671b", "grok_1_314b", "internvl2_1b", "whisper_large_v3"]
+MESHES = {"16x16": dict(data=16, model=16), "2x16x16": dict(pod=2, data=16, model=16)}
+_INITS: dict = {}
+
+
+def abstract_inits(arch):
+    """(port meta params, port axes, reference shapes, reference axes)."""
+    if arch not in _INITS:
+        tcfg, jcfg = tcfgs.get_config(arch), jcfgs.get_config(arch)
+        tstate, taxes = tsteps.init_state(tcfgs.make_model(tcfg), tcfg, TAdamW(), device="meta")
+        jstate, jaxes = jsteps.init_state(jcfgs.make_model(jcfg), jcfg, JAdamW(), jax.random.PRNGKey(0),
+                                          abstract=True)
+        _INITS[arch] = (tstate["params"], taxes, jstate["params"], jaxes)
+    return _INITS[arch]
+
+
+def port_layout(ref_specs, ref_shapes):
+    def conv(tree, shapes):
+        out = {}
+        for k, v in tree.items():
+            if k == "periods":
+                n = jax.tree_util.tree_leaves(shapes[k])[0].shape[0]
+                out[k] = jax.tree_util.tree_map(lambda s: _stacked(s, n), v, is_leaf=lambda x: isinstance(x, P))
+            elif isinstance(v, dict):
+                out[k] = conv(v, shapes[k])
+            else:
+                out[k] = v
+        return out
+
+    return tmod.from_reference_layout(conv(ref_specs, ref_shapes), lambda s: tuple(s))
+
+
+def _stacked(spec, n):
+    assert tuple(spec)[0] is None, spec  # "layers" never shards
+    arr = np.empty(n, dtype=object)
+    for i in range(n):
+        arr[i] = P(*tuple(spec)[1:])
+    return arr
+
+
+def ref_device_bytes(specs, shapes, mesh: dict) -> int:
+    """Per-device bytes of a reference tree from its PartitionSpecs."""
+    out = 0
+    for spec, sds in zip(jax.tree_util.tree_leaves(specs, is_leaf=lambda x: isinstance(x, P)),
+                         jax.tree_util.tree_leaves(shapes)):
+        dims = list(sds.shape)
+        for i, entry in enumerate(tuple(spec)):
+            for axis in (entry if isinstance(entry, tuple) else (entry,) if entry else ()):
+                dims[i] //= mesh[axis]
+        out += int(np.prod(dims)) * np.dtype(sds.dtype).itemsize
+    return out
+
+
+@pytest.mark.parametrize("rules", ["default", "fsdp"])
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("arch", FULL_ARCHS)
+def test_param_spec_trees_match_reference_at_full_size(arch, mesh, rules):
+    """The port's meta init resolved on a production mesh equals
+    ``jax.eval_shape`` of the reference's init resolved there, leaf by leaf
+    in the port's layout, and so do the per-device param bytes."""
+    tparams, taxes, jshapes, jaxes = abstract_inits(arch)
+    shape = MESHES[mesh]
+    got = tmod.logical_to_pspec(taxes, tparams, MeshShape(**shape), tmod.RULE_SETS[rules])
+    jspecs = jmod.logical_to_pspec(jaxes, jshapes, MeshShape(**shape), jmod.RULE_SETS[rules])
+    want = port_layout(jspecs, jshapes)
+    assert T.flatten_with_path(got) == T.flatten_with_path(want)
+    assert any(s != (None,) * len(s) for s in T.leaves(got))  # something shards
+    assert all(p.device.type == "meta" for p in T.leaves(tparams))
+    sh = T.tree_map(lambda s: tmod.NamedSharding(MeshShape(**shape), s), got)
+    assert dryrun.device_bytes(tparams, sh) == ref_device_bytes(jspecs, jshapes, shape)
+
+
+DECODE_ARCHS = ["qwen3_8b", "deepseek_v3_671b", "recurrentgemma_9b", "xlstm_125m", "whisper_large_v3"]
+
+
+def ref_cache_specs_in_port_layout(jcache_sh, jcfg):
+    """The reference's cache shardings (stacked under ``periods``, ``self``
+    or ``cross`` along a leading layers dim, or per layer) as spec tuples in
+    the port's per-layer layout."""
+    from repro.models.lm import stack_plan
+
+    specs = jax.tree_util.tree_map(lambda s: s.spec, jcache_sh)
+    if jcfg.encdec is not None:
+        side = lambda tree: {f"prefix_{i}": {k: tuple(v)[1:] for k, v in tree.items()} for i in range(jcfg.n_layers)}
+        return {"self": side(specs["self"]), "cross": side(specs["cross"])}
+    n_periods = stack_plan(jcfg)[2]
+    tree = {k: jax.tree_util.tree_map(lambda s: _stacked(s, n_periods), v, is_leaf=lambda x: isinstance(x, P))
+            if k == "periods" else v for k, v in specs.items()}
+    return tmod.from_reference_layout(tree, lambda s: tuple(s))
+
+
+@pytest.mark.parametrize("seq_shard", [False, True])
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_cache_and_batch_shardings_match_reference(arch, seq_shard):
+    """One decode cell (decode_32k) of a dense, an MLA, two recurrent and the
+    encoder-decoder config on the single-pod mesh: the port's per-layer
+    cache shardings equal the reference's stacked ones leaf by leaf, without
+    the stacked offset; the token and train batch shard the same way."""
+    tcfg, jcfg = tcfgs.get_config(arch), jcfgs.get_config(arch)
+    cell, jcell = tcfgs.SHAPES["decode_32k"], jcfgs.SHAPES["decode_32k"]
+    amesh = AbstractMesh((16, 16), ("data", "model"))
+    mesh = MeshShape(data=16, model=16)
+    tcache = tsteps.cache_specs(tcfgs.make_model(tcfg), tcfg, cell)
+    got = T.tree_map(lambda s: s.spec, tsteps.cache_shardings(tcache, tcfg, mesh, seq_shard))
+    jcache = jsteps.cache_specs(jcfgs.make_model(jcfg), jcfg, jcell)
+    want = ref_cache_specs_in_port_layout(jsteps.cache_shardings(jcache, jcfg, amesh, seq_shard), jcfg)
+    assert T.flatten_with_path(got) == T.flatten_with_path(want)
+    tok = tsteps.batch_shardings(tsteps.token_specs(tcfg, cell), mesh).spec
+    assert tok == tuple(jsteps.batch_shardings(jsteps.token_specs(jcfg, jcell), amesh).spec)
+    tb = tsteps.batch_shardings(tsteps.batch_specs(tcfg, tcfgs.SHAPES["train_4k"]), mesh)
+    jb = jsteps.batch_shardings(jsteps.batch_specs(jcfg, jcfgs.SHAPES["train_4k"]), amesh)
+    assert {k: v.spec for k, v in tb.items()} == {k: tuple(v.spec) for k, v in jb.items()}
+
+
+# ---------------------------------------------------------------------------
+# 8 ranks: the train step and the MoE's group-local dispatch
+# ---------------------------------------------------------------------------
+
+JAX_MESH_SCRIPT = textwrap.dedent(
+    """
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import dataclasses, json, sys
+    import jax, jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from repro.configs import get_reduced, make_model
+    from repro.launch.mesh import _mk
+    from repro.nn.module import axis_rules, init_with_axes
+
+    tmp = sys.argv[1]
+    out = {}
+    base = dataclasses.replace(get_reduced("grok_1_314b"), dtype="float32")
+    model = make_model(base)
+    params, _ = init_with_axes(model.init, jax.random.PRNGKey(0), dtype=jnp.float32)
+    np.savez(os.path.join(tmp, "grok_params.npz"),
+             **{jax.tree_util.keystr(p): np.asarray(v) for p, v in jax.tree_util.tree_leaves_with_path(params)})
+    tok = jnp.asarray(np.random.default_rng(0).integers(0, base.vocab, (4, 32)), jnp.int32)
+    mesh = _mk((4, 2), ("data", "model"))
+    for name, cf in (("nodrop", base.moe.n_experts / base.moe.top_k), ("drop", 1.0)):
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, capacity_factor=cf))
+        m = make_model(cfg)
+        with mesh, axis_rules(mesh):
+            logits, _ = jax.jit(lambda p, t: m.train_logits(p, t))(params, tok)
+        np.save(os.path.join(tmp, f"grok_{name}.npy"), np.asarray(logits))
+    # hlo_analysis' per-device dot FLOPs of reduced qwen3's train and
+    # decode steps and of reduced grok's and starcoder2's train steps,
+    # SPMD-partitioned for a (2, 4) mesh.
+    from repro.configs import ShapeCell
+    from repro.launch import steps as S
+    from repro.launch.hlo_analysis import analyze
+    from repro.optim.adamw import AdamW
+    qcfg = get_reduced("qwen3_8b")
+    qmodel, opt, mesh24 = make_model(qcfg), AdamW(), _mk((2, 4), ("data", "model"))
+    with mesh24, axis_rules(mesh24):
+        state, axes = S.init_state(qmodel, qcfg, opt, jax.random.PRNGKey(0), abstract=True)
+        st = S.state_shardings(state, axes, mesh24)
+        b = S.batch_specs(qcfg, ShapeCell("train_4k", 64, 8, "train"))
+        train = jax.jit(S.make_train_step(qmodel, qcfg, opt), in_shardings=(st, S.batch_shardings(b, mesh24)),
+                        out_shardings=(st, None)).lower(state, b).compile()
+        dcell = ShapeCell("decode_32k", 64, 8, "decode")
+        t, c = S.token_specs(qcfg, dcell), S.cache_specs(qmodel, qcfg, dcell)
+        decode = jax.jit(S.make_serve_step(qmodel, qcfg), in_shardings=(
+            st["params"], S.batch_shardings(t, mesh24), S.cache_shardings(c, qcfg, mesh24))).lower(
+            state["params"], t, c).compile()
+    out["dot_flops"] = {name: analyze(x.as_text()).corrected_dot_flops for name, x in (("train", train), ("decode", decode))}
+    for arch in ("grok_1_314b", "starcoder2_3b"):
+        acfg = get_reduced(arch)
+        amodel = make_model(acfg)
+        with mesh24, axis_rules(mesh24):
+            state, axes = S.init_state(amodel, acfg, opt, jax.random.PRNGKey(0), abstract=True)
+            st = S.state_shardings(state, axes, mesh24)
+            b = S.batch_specs(acfg, ShapeCell("train_4k", 64, 8, "train"))
+            x = jax.jit(S.make_train_step(amodel, acfg, opt), in_shardings=(st, S.batch_shardings(b, mesh24)),
+                        out_shardings=(st, None)).lower(state, b).compile()
+        out["dot_flops"][arch] = analyze(x.as_text()).corrected_dot_flops
+    # Which rows of a (pod, data)-sharded dim each device holds, by its
+    # position in a (2, 2, 2) mesh.
+    mesh3 = _mk((2, 2, 2), ("pod", "data", "model"))
+    imap = NamedSharding(mesh3, P(("pod", "data"), None)).devices_indices_map((8, 3))
+    out["rows"] = [imap[d][0].start for d in mesh3.devices.flat]
+    print(json.dumps(out))
+    """
+)
+
+
+class Background:
+    """A subprocess started when the module's first test asks for it and
+    read when a test needs its result, so it overlaps the tests between."""
+
+    def __init__(self, argv, timeout):
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        env.pop("XLA_FLAGS", None)
+        self.proc = subprocess.Popen(argv, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.timeout = timeout
+
+    def result(self) -> tuple[int, str, str]:
+        try:
+            out, err = self.proc.communicate(timeout=self.timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        return self.proc.returncode, out, err
+
+
+@pytest.fixture(scope="module", autouse=True)
+def background(tmp_path_factory):
+    """The reference on 8 forced host devices (reduced grok's params and
+    its (4, 2)-mesh logits with and without drops, and the rows each device
+    of a (2, 2, 2) mesh holds of a ("pod", "data")-sharded dim), and the
+    dry-run CLI over every reduced cell."""
+    jtmp, dtmp = tmp_path_factory.mktemp("jax_mesh"), tmp_path_factory.mktemp("dryrun")
+    jobs = {
+        "jax_mesh": (jtmp, Background([sys.executable, "-c", JAX_MESH_SCRIPT, str(jtmp)], 300)),
+        "dryrun": (dtmp, Background([sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--mesh",
+                                     "single", "--reduced", "--out", str(dtmp)], 300)),
+    }
+    yield jobs
+    for _, job in jobs.values():
+        if job.proc.poll() is None:
+            job.proc.kill()
+            job.proc.wait()
+
+
+@pytest.fixture(scope="module")
+def jax_mesh_run(background):
+    tmp, job = background["jax_mesh"]
+    rc, out, err = job.result()
+    assert rc == 0, err[-3000:]
+    return tmp, json.loads(out.strip().splitlines()[-1])
+
+
+MOE_RANKS = """
+import dataclasses
+import numpy as np
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.configs import get_reduced, make_model
+from repro_torch.launch import steps as S
+from repro_torch.launch.mesh import _mk
+from repro_torch.nn import layers as L
+from repro_torch.nn.module import NamedSharding, axis_rules, from_reference_layout, init_with_axes
+
+base = dataclasses.replace(get_reduced("grok_1_314b"), dtype="float32")
+_, axes = init_with_axes(make_model(base).init, 0, device="meta")
+flat = np.load(TMP / "grok_params.npz")
+nested = {}
+for key, val in flat.items():
+    node = nested
+    parts = [p.strip("[]'") for p in key.split("][")]
+    for p in parts[:-1]:
+        node = node.setdefault(p, {})
+    node[parts[-1]] = torch.from_numpy(val)
+params = from_reference_layout(nested)
+tok = torch.from_numpy(np.random.default_rng(0).integers(0, base.vocab, (4, 32))).int()
+mesh = _mk((4, 2), ("data", "model"), "cpu")
+sharded = S.shard_state(params, S.state_shardings({"params": params}, axes, mesh)["params"])
+dtok = distribute_tensor(tok, mesh, [Shard(0), Replicate()], src_data_rank=None)
+out = {}
+for name, cf in (("nodrop", base.moe.n_experts / base.moe.top_k), ("drop", 1.0)):
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, capacity_factor=cf))
+    model = make_model(cfg)
+    L.reset_moe_counts()
+    one, _ = model.train_logits(params, tok)
+    out[name + "_dropped_g1"] = L.moe_counts()["dropped"]
+    L.reset_moe_counts()
+    with axis_rules(mesh), implicit_replication():
+        got, _ = model.train_logits(sharded, dtok)
+    out[name + "_dropped_g4"] = L.moe_counts()["dropped"]
+    got = got.full_tensor()
+    ref = torch.from_numpy(np.load(TMP / f"grok_{name}.npy"))
+    scale = float(ref.abs().max())
+    out[name + "_vs_jax"] = float((got - ref).abs().max()) / scale
+    out[name + "_vs_one_group"] = float((got - one).abs().max()) / scale
+# The rows this rank holds of a ("pod", "data")-sharded dim of a (2, 2, 2) mesh.
+mesh3 = _mk((2, 2, 2), ("pod", "data", "model"), "cpu")
+rows = distribute_tensor(torch.arange(8 * 3).reshape(8, 3), mesh3,
+                         NamedSharding(mesh3, (("pod", "data"), None)).placements(), src_data_rank=None)
+out["row"] = int(rows.to_local()[0, 0]) // 3
+emit(out)
+"""
+
+
+def test_moe_group_local_dispatch_on_8_ranks(tmp_path, jax_mesh_run):
+    """Reduced grok in fp32 on a (4, 2) mesh of 8 ranks (4 dispatch groups,
+    DTensor params and tokens), from the JAX init.  Without drops
+    (cf = E/k) it equals one group; with drops (cf = 1) it equals the
+    reference's run on its 8-device (4, 2) mesh, and drops another count of
+    assignments than one group does.  A ("pod", "data") dim puts rank r's
+    rows where JAX puts device r's."""
+    jtmp, jout = jax_mesh_run
+    for name in ("grok_params.npz", "grok_nodrop.npy", "grok_drop.npy"):
+        (tmp_path / name).symlink_to(jtmp / name)
+    outs = run_ranks(tmp_path, 8, MOE_RANKS)
+    o = outs[0]
+    assert o["nodrop_vs_one_group"] < 1e-5 and o["nodrop_vs_jax"] < 1e-5, o
+    assert o["drop_vs_jax"] < 1e-5, o
+    assert o["drop_vs_one_group"] > 1e-3, o  # the groups route differently
+    assert o["nodrop_dropped_g4"] == o["nodrop_dropped_g1"] == 0
+    assert o["drop_dropped_g4"] != o["drop_dropped_g1"], o
+    assert [r["row"] for r in outs] == jout["rows"]
+
+
+TRAIN_RANKS = """
+import numpy as np
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from repro_torch.configs import get_reduced, make_model
+from repro_torch.launch import steps as S
+from repro_torch.launch.mesh import _mk
+from repro_torch.nn.module import init_with_axes
+from repro_torch.optim.adamw import AdamW
+import dataclasses
+
+cfg = dataclasses.replace(get_reduced("qwen3_8b"), dtype="float32")
+model = make_model(cfg)
+opt = AdamW(learning_rate=1e-3)
+state = torch.load(TMP / "state.pt")
+batch = torch.load(TMP / "batch.pt")
+_, axes = init_with_axes(model.init, 0, device="meta")
+mesh = _mk((2, 4), ("data", "model"), "cpu")
+sh = S.state_shardings(state, axes, mesh)
+step = S.make_sharded_train_step(model, cfg, opt, sh)
+dstate = S.shard_state(state, sh)
+dbatch = S.shard_state(batch, S.batch_shardings(batch, mesh))
+new, metrics = step(dstate, dbatch)
+w = new["params"]["prefix_0"]["ffn"]["w_gate"]
+full = T.tree_map(lambda x: x.full_tensor(), new)
+if RANK == 0:
+    torch.save(full, TMP / "sharded_state.pt")
+emit({"loss": float(metrics["loss"]), "w_gate_local": w.to_local().numpy().tobytes().hex()[:64],
+      "w_gate_placements": [f"S{p.dim}" if p.is_shard() else "R" for p in w.placements],
+      "same_placements": all(str(a.placements) == str(b.placements)
+                             for a, b in zip(T.leaves(new), T.leaves(dstate)))})
+""".replace("import dataclasses", "import dataclasses\nfrom repro_torch import tree as T")
+
+
+def test_train_step_on_8_ranks_matches_one_process_and_jax(tmp_path):
+    """The counterpart of ``tests/test_sharding.py::test_multidevice_train_step_runs``:
+    reduced qwen3 in fp32 from the JAX init, a (2, 4) mesh of 8 ranks, the
+    reference's batch.  The sharded step's loss and AdamW moments (after one
+    step, the clipped gradient and its square) equal the port's one-process
+    step and the JAX step within 1e-5 relative; its params within the bar
+    ``tests/test_torch_train.py`` holds one step to (rtol = atol = 2e-5), since
+    AdamW turns rounding in near-zero gradients into parameter gaps of 3e-5
+    of a leaf's largest value between the one-process port and JAX too.  The
+    new state keeps its shardings, and ``ffn/w_gate`` has 4 distinct local
+    shards along ``model``."""
+    jcfg = dataclasses.replace(jcfgs.get_reduced("qwen3_8b"), dtype="float32")
+    tcfg = dataclasses.replace(tcfgs.get_reduced("qwen3_8b"), dtype="float32")
+    jmodel = jcfgs.make_model(jcfg)
+    jopt = JAdamW(learning_rate=1e-3)
+    jstate, _ = jsteps.init_state(jmodel, jcfg, jopt, jax.random.PRNGKey(0))
+    toks = np.random.default_rng(0).integers(0, jcfg.vocab, (4, 33)).astype(np.int32)
+    jbatch = {"inputs": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(toks[:, 1:])}
+    jnew, jm = jax.jit(jsteps.make_train_step(jmodel, jcfg, jopt))(jstate, jbatch)
+
+    from repro_torch.launch.train import port_state
+
+    to_t = lambda tree: T.tree_map(lambda x: torch.from_numpy(np.array(x)), tree)
+    state = port_state(to_t(jax.tree_util.tree_map(np.asarray, jstate)))
+    batch = {k: torch.from_numpy(np.array(v)) for k, v in jbatch.items()}
+    torch.save(state, tmp_path / "state.pt")
+    torch.save(batch, tmp_path / "batch.pt")
+    tmodel = tcfgs.make_model(tcfg)
+    one, m1 = tsteps.make_train_step(tmodel, tcfg, TAdamW(learning_rate=1e-3))(state, batch)
+
+    outs = run_ranks(tmp_path, 8, TRAIN_RANKS)
+    sharded = torch.load(tmp_path / "sharded_state.pt")
+    jone = port_state(to_t(jax.tree_util.tree_map(np.asarray, jnew)))
+    assert abs(outs[0]["loss"] - float(m1["loss"])) <= 1e-5 * abs(float(m1["loss"]))
+    assert abs(outs[0]["loss"] - float(jm["loss"])) <= 1e-5 * abs(float(jm["loss"]))
+    for (path, got), (_, want), (_, jwant) in zip(T.flatten_with_path(sharded), T.flatten_with_path(one),
+                                                  T.flatten_with_path(jone)):
+        if path[0] == "opt" and path[1] in ("m", "v"):
+            assert rel(got.numpy(), want.numpy()) < 1e-5 and rel(got.numpy(), jwant.numpy()) < 1e-5, path
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5, atol=2e-5, err_msg=str(path))
+        np.testing.assert_allclose(got.numpy(), jwant.numpy(), rtol=2e-5, atol=2e-5, err_msg=str(path))
+    assert all(o["same_placements"] for o in outs)
+    assert outs[0]["w_gate_placements"] == ["R", "S1"]
+    assert len({o["w_gate_local"] for o in outs}) == 4
+
+
+# ---------------------------------------------------------------------------
+# The dry-run
+# ---------------------------------------------------------------------------
+
+
+def test_dryrun_accounting_matches_reference(jax_mesh_run):
+    """Reduced qwen3's train step on a (2, 4) mesh: per-device bytes equal
+    those of the reference's specs; the per-device dot FLOPs (``dot_flops``)
+    equal ``hlo_analysis``' count of the reference step SPMD-partitioned for
+    its 8-device (2, 4) mesh, and the whole step's (``global_dot_flops``)
+    its count compiled for one CPU device, both within 2%.  The per-device
+    FLOPs of the decode step, and of reduced grok's and starcoder2's train
+    steps, equal the reference's on that mesh too."""
+    _, jout = jax_mesh_run
+    jcfg, tcfg = jcfgs.get_reduced("qwen3_8b"), tcfgs.get_reduced("qwen3_8b")
+    jcell = jcfgs.ShapeCell("train_4k", 64, 8, "train")
+    tcell = tcfgs.ShapeCell("train_4k", 64, 8, "train")
+    shape = dict(data=2, model=4)
+    got = dryrun.account(tcfg, tcell, MeshShape(**shape))
+
+    jmodel, jopt = jcfgs.make_model(jcfg), JAdamW()
+    jstate, jaxes = jsteps.init_state(jmodel, jcfg, jopt, jax.random.PRNGKey(0), abstract=True)
+    fake = MeshShape(**shape)
+    pspecs = jmod.logical_to_pspec(jaxes, jstate["params"], fake)
+    bspec = jsteps.batch_specs(jcfg, jcell)
+    lead = jsteps._shard_if(jcell.global_batch, ("data",), fake)
+    want = {
+        "params": ref_device_bytes(pspecs, jstate["params"], shape),
+        "opt": 2 * ref_device_bytes(pspecs, jstate["opt"]["m"], shape) + 4 + 4,  # m, v, count; step
+        "batch": ref_device_bytes({k: P(lead, None) for k in bspec}, bspec, shape),
+    }
+    want["argument_size_in_bytes"] = sum(want.values())
+    assert got["memory"] == want
+
+    per_device = jout["dot_flops"]["train"]
+    assert abs(got["dot_flops"] / per_device - 1) < 0.02, (got["dot_flops"], per_device)
+    compiled = jax.jit(jsteps.make_train_step(jmodel, jcfg, jopt)).lower(jstate, bspec).compile()
+    whole = analyze(compiled.as_text()).corrected_dot_flops
+    assert abs(got["global_dot_flops"] / whole - 1) < 0.02, (got["global_dot_flops"], whole)
+
+    decode = dryrun.account(tcfg, tcfgs.ShapeCell("decode_32k", 64, 8, "decode"), MeshShape(**shape))
+    assert abs(decode["dot_flops"] / jout["dot_flops"]["decode"] - 1) < 0.02, (decode, jout["dot_flops"])
+    for arch in ("grok_1_314b", "starcoder2_3b"):  # MoE, and GQA whose KV the model axis does not divide
+        other = dryrun.account(tcfgs.get_reduced(arch), tcell, MeshShape(**shape))
+        assert abs(other["dot_flops"] / jout["dot_flops"][arch] - 1) < 0.02, (arch, other, jout["dot_flops"])
+
+
+def test_dryrun_seq_fit_is_exact():
+    """The recurrent cells' FLOPs come from a quadratic fit in the sequence
+    length: a quadratic count comes back exactly, another is refused."""
+    assert dryrun.fit_in_seq(lambda s: 3 * s * s + 5 * s + 7, 32_768) == 3 * 32_768**2 + 5 * 32_768 + 7
+    with pytest.raises(ValueError, match="not quadratic"):
+        dryrun.fit_in_seq(lambda s: s**3, 4096)
+
+
+def test_dryrun_cli_all_reduced(background):
+    """``--all --mesh single --reduced`` exits 0 with a record per cell,
+    each with its whole step's dot FLOPs and, but for the recurrent archs'
+    train and prefill cells, one device's share of them."""
+    tmp, job = background["dryrun"]
+    rc, out, err = job.result()
+    assert rc == 0, out[-3000:] + err[-3000:]
+    n_cells = sum(len(tcfgs.applicable_shapes(tcfgs.get_config(a))) for a in tcfgs.ARCH_IDS)
+    records = [json.loads(p.read_text()) for p in tmp.glob("*.json")]
+    assert len(records) == n_cells
+    assert all(r["global_dot_flops"] > 0 and r["memory"]["argument_size_in_bytes"] > 0 for r in records)
+    for r in records:  # per device: all but the recurrent archs' train and prefill cells
+        recurrent = tcfgs.get_config(r["arch"]).recurrent is not None and r["kind"] != "decode"
+        assert (r["dot_flops"] is None) if recurrent else 0 < r["dot_flops"] <= r["global_dot_flops"], r
