@@ -172,8 +172,16 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                  step run on DTensors over a fake process group of the
                  production world size) for qwen3-8b train_4k and
                  deepseek-v3-671b decode_32k on 16x16 and 2x16x16:
-                 per-device bytes beside the card's, dot FLOPs per device
-                 and for the whole step
+                 per-device argument and temporary bytes (their sum beside
+                 the card's), the collectives one device issues (bytes and
+                 counts by type, their total; none of qwen3's carries a
+                 device's (B, S, V) fp32 logits), dot FLOPs per device and
+                 for the whole step
+13l. terasort    TeraGen, TeraSort and TeraValidate through the port's
+                 ``repro_torch.apps`` on the host, 2,000,000 records (200 MB)
+                 in each of fig7's storage modes (tls, ofs, mem): validated,
+                 the sorted keys' digest equal to a numpy sort's; seconds
+                 and MB/s a phase, beside the nvidia-smi line
 14. phase_seconds  each phase's wall seconds, and the total from the build on
 15. kernels      one entry per kernel: launches in the serve phases that run
                  it, max error, times, bound
@@ -2273,10 +2281,14 @@ def dryrun_phase(record: dict) -> None:
     """``repro_torch.launch.dryrun.run_cell`` (meta tensors; the step run
     once on DTensors over a fake process group of the production world
     size, in this process) for qwen3-8b ``train_4k`` and deepseek-v3-671b
-    ``decode_32k`` on the 16x16 and 2x16x16 meshes: per-device bytes beside
-    this card's memory, and the step's dot FLOPs per device and whole."""
+    ``decode_32k`` on the 16x16 and 2x16x16 meshes: per-device bytes of the
+    arguments and of the step's temporaries beside this card's memory, the
+    collectives one device issues (bytes by type, their total), and the
+    step's dot FLOPs per device and whole.  No collective of qwen3's step
+    may carry a (B_local, S, V) fp32 tensor: the vocab stays split."""
     import torch
 
+    from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch.dryrun import run_cell
 
     card = torch.cuda.get_device_properties(0).total_memory
@@ -2284,16 +2296,84 @@ def dryrun_phase(record: dict) -> None:
     for arch, shape in (("qwen3_8b", "train_4k"), ("deepseek_v3_671b", "decode_32k")):
         for multi in (False, True):
             r = run_cell(arch, shape, multi)
-            per_device = r["memory"]["argument_size_in_bytes"]
-            row = dict(arch=arch, shape=shape, mesh=r["mesh"], n_devices=r["n_devices"], memory=r["memory"],
-                       per_device_bytes=per_device, card_bytes=card, fits_card=per_device <= card,
-                       dot_flops=r["dot_flops"], global_dot_flops=r["global_dot_flops"],
-                       param_count=r["param_count"], seconds=r["account_s"])
+            mem, coll = r["memory"], r["collectives"]
+            per_device = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+            row = dict(arch=arch, shape=shape, mesh=r["mesh"], n_devices=r["n_devices"], memory=mem,
+                       argument_size_in_bytes=mem["argument_size_in_bytes"],
+                       temp_size_in_bytes=mem["temp_size_in_bytes"], per_device_bytes=per_device, card_bytes=card,
+                       fits_card=per_device <= card, collectives=coll["bytes_by_type"],
+                       collective_counts=coll["counts"], collective_total_bytes=coll["total_bytes"],
+                       collective_largest_bytes=coll["largest_bytes"], dot_flops=r["dot_flops"],
+                       global_dot_flops=r["global_dot_flops"], param_count=r["param_count"],
+                       seconds=r["account_s"])
             emit("dryrun", **row)
-            if per_device <= 0 or not 0 < r["dot_flops"] <= r["global_dot_flops"]:
+            if per_device <= 0 or not 0 < r["dot_flops"] <= r["global_dot_flops"] or coll["total_bytes"] <= 0:
                 raise AssertionError(f"empty dry-run record: {row}")
+            if shape == "train_4k":
+                cell, cfg = SHAPES[shape], get_config(arch)
+                dp = r["n_devices"] // 16  # the model axis is 16 on both meshes
+                logits = cell.global_batch // dp * cell.seq_len * cfg.vocab * 4
+                if max(coll["largest_bytes"].values()) >= logits:
+                    raise AssertionError(f"a collective carries the {logits} B of a device's logits: {row}")
             rows.append(row)
     record["dryrun"] = rows
+
+
+TERASORT_RECORDS = 2_000_000  # 100-byte records: 200 MB through each storage mode
+TERASORT_MODES = ("tls", "ofs", "mem")  # benchmarks/fig7_terasort.py's storage organisations
+
+
+def terasort_phase(record: dict, smi: str) -> None:
+    """TeraGen, TeraSort and TeraValidate through the port's ``apps`` and
+    ``core`` on this machine's host (numpy and the host's disk; the card
+    is idle) in the three storage modes of ``benchmarks/fig7_terasort.py``:
+    ``tls`` (write-through, tiered reads), ``ofs`` (PFS bypass) and ``mem``
+    (memory only), each in a fresh store under build/.  TeraValidate
+    passes, and the output's sorted keys equal a numpy sort of the
+    generated records' (SHA-256 of both); each phase's seconds and MB/s."""
+    import hashlib
+    import tempfile
+    from importlib import import_module
+
+    import numpy as np
+
+    from repro_torch.apps.shuffle import fold_keys
+    from repro_torch.core.store import ReadMode, TwoLevelStore, WriteMode
+
+    ts = import_module("repro_torch.apps.terasort")  # the package exports a function of that name
+    modes = {"tls": (WriteMode.WRITE_THROUGH, ReadMode.TIERED, WriteMode.WRITE_THROUGH),
+             "ofs": (WriteMode.PFS_BYPASS, ReadMode.PFS_BYPASS, WriteMode.PFS_BYPASS),
+             "mem": (WriteMode.MEMORY_ONLY, ReadMode.MEMORY_ONLY, WriteMode.MEMORY_ONLY)}
+    n, shards, workers = TERASORT_RECORDS, 4, 4
+    mb = n * ts.RECORD / 2**20
+    (ROOT / "build").mkdir(exist_ok=True)
+    rows = []
+    for label in TERASORT_MODES:
+        wgen, rmap, wred = modes[label]
+        with tempfile.TemporaryDirectory(prefix="terasort_", dir=ROOT / "build") as d:
+            with TwoLevelStore(str(Path(d) / "pfs"), mem_capacity_bytes=1 << 30, block_bytes=2 << 20,
+                               stripe_bytes=512 << 10, n_pfs_servers=4, io_workers=workers) as st:
+                gen_s = ts.teragen(st, n, n_shards=shards, write_mode=wgen, workers=workers)
+                t = ts.terasort(st, n_shards=shards, n_reducers=shards, read_mode=rmap, write_mode=wred,
+                                label=label, workers=workers)
+                valid = ts.teravalidate(st, shards, read_mode=rmap)
+                keys = {}
+                for part, name in (("generated", ts._shard_name), ("sorted", ts._out_name)):
+                    raw = b"".join(st.get(name(i), mode=rmap) for i in range(shards))
+                    keys[part] = fold_keys(np.frombuffer(raw, dtype=np.uint8).reshape(-1, ts.RECORD), ts.KEY)
+                digests = {"numpy_sort": hashlib.sha256(np.sort(keys["generated"]).tobytes()).hexdigest(),
+                           "terasort": hashlib.sha256(keys["sorted"].tobytes()).hexdigest()}
+        row = dict(mode=label, records=t.records, mb=mb, gen_s=gen_s, map_s=t.map_s, shuffle_s=t.shuffle_s,
+                   reduce_s=t.reduce_s, sort_s=t.sort_s, validate_s=t.validate_s, gen_mbps=mb / gen_s,
+                   sort_mbps=mb / t.sort_s, validate_mbps=mb / t.validate_s, shuffle_mbps=t.shuffle_mbps,
+                   mem_hit_rate=t.mem_hit_rate, spill_files=t.spill_files, spill_bytes=t.spill_bytes,
+                   merge_runs_max=t.merge_runs_max, teravalidate=valid, digests=digests, nvidia_smi=smi,
+                   host="the card machine's CPU and disk")
+        emit("terasort", **row)
+        if not valid or t.records != n or digests["numpy_sort"] != digests["terasort"]:
+            raise AssertionError(f"TeraSort through the {label} mode is wrong: {row}")
+        rows.append(row)
+    record["terasort"] = rows
 
 
 # ------------------------------------------------------------------------- main
@@ -2430,6 +2510,7 @@ def main() -> int:
         ("mesh_train", lambda: mesh_train_phase(record)),
         ("restore_sharded_serve", lambda: restore_sharded_serve_phase(record)),
         ("dryrun", lambda: dryrun_phase(record)),
+        ("terasort", lambda: terasort_phase(record, smi)),
     ]
     seconds = {}
     for name, run in phases:

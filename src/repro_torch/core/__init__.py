@@ -14,6 +14,7 @@ them imports ``torch``; the store is host I/O on bytes and numpy.
 * :mod:`repro_torch.core.arbiter`  — the elastic memory arbiter.
 * :mod:`repro_torch.core.dstore`   — DistributedStore: per-host shards, leases, peers
   (its retries and circuit breakers in :mod:`repro_torch.core.resilience`).
+* :mod:`repro_torch.core.simulator` — storage mountain + TeraSort phase models.
 """
 
 from repro_torch.core.cluster import ClusterSpec, paper_average_cluster, palmetto_cluster, tpu_v5e_pod

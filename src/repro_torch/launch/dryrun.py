@@ -32,11 +32,19 @@ Per cell the dry-run:
      (``dot_flops_from``); ``dot_flops`` is null, since DTensor chooses its
      redistributions by their cost, which changes with the length, so a
      short run's per-device count does not extrapolate;
-  5. writes JSON under ``build/dryrun_torch/`` (``--out``).
+  5. records, from the same run on DTensors, one device's
+     ``collectives`` and ``memory["temp_size_in_bytes"]`` (``DeviceCounter``,
+     a dispatch mode beneath ``DotFlops`` that sees the plain ops DTensor
+     runs on the local blocks): every collective DTensor's
+     redistributions issue, counted by its output bytes on one device in
+     the reference's keys, and the peak bytes
+     of the storages the step allocates, each DTensor by its local block;
+  6. writes JSON under ``build/dryrun_torch/`` (``--out``).
 
-XLA's ``temp_size_in_bytes``, ``cost_analysis`` and the collective bytes
-read from compiled HLO have no counterpart without a compiled program, and
-none is recorded.
+Not recorded: XLA's ``cost_analysis`` (no compiled program to read it
+from), and the recurrent archs' per-device counts of their train and
+prefill cells (``dot_flops``, ``collectives`` and ``temp_size_in_bytes``
+are null there, for the reason in 4).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k --mesh both
@@ -52,6 +60,7 @@ import json
 import math
 import time
 import traceback
+import weakref
 from fractions import Fraction
 from pathlib import Path
 
@@ -60,6 +69,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import ARCH_IDS, SHAPES, applicable_shapes, get_config, get_reduced, make_model
@@ -123,6 +133,114 @@ class DotFlops(TorchDispatchMode):
         return out
 
 
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute")
+
+# DTensor's collectives (functional: each returns its output) -> the
+# reference's collective types.
+_COLLECTIVE_OPS = {
+    torch.ops._c10d_functional.all_reduce.default: "all-reduce",
+    torch.ops._c10d_functional.all_gather_into_tensor.default: "all-gather",
+    torch.ops._c10d_functional.reduce_scatter_tensor.default: "reduce-scatter",
+    torch.ops._c10d_functional.all_to_all_single.default: "all-to-all",
+}
+
+
+class DeviceCounter(TorchDispatchMode):
+    """One device's collectives and temporary bytes in a step run on
+    DTensors.  It hands every DTensor op on to DTensor (``NotImplemented``)
+    and sees the plain ops DTensor then runs on this device's blocks, and
+    the step's plain ops.
+
+    ``collectives``: each collective DTensor issues (the step calls none
+    of ``torch.distributed``'s itself) by its output bytes on one device
+    (all-reduce: the whole tensor; all-gather: the gathered tensor;
+    reduce-scatter: the shard; all-to-all: the received block), summed by
+    type, as the reference's ``collective_bytes`` sums them from HLO, and
+    the largest single op of each type (``largest_bytes``).
+
+    ``temp_bytes``: the peak bytes of the storages the step allocates, live
+    at once, each counted once however many views it has and dropped when
+    freed (a weakref finalizer on the storage).  The arguments' storages,
+    given to the constructor, are not counted: this is the peak less the
+    arguments' bytes, and it includes autograd's saved tensors (live until
+    backward frees them) and the outputs (the new state) as they are made.
+    It is an upper bound on what a compiled program needs: nothing is
+    reused beyond PyTorch's own frees."""
+
+    def __init__(self, args=()):
+        super().__init__()
+        self.bytes_by_type = dict.fromkeys(COLLECTIVES, 0)
+        self.counts = dict.fromkeys(COLLECTIVES, 0)
+        self.largest = dict.fromkeys(COLLECTIVES, 0)
+        self._args = [t.untyped_storage() for t in tree_leaves(args) if isinstance(t, torch.Tensor)
+                      for t in [t.to_local() if isinstance(t, DTensor) else t]]
+        self._known = {id(st) for st in self._args}
+        self._live: dict[int, int] = {}
+        self.live_bytes = self.temp_bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+            # DTensor's sharding propagation runs each op on fake tensors of
+            # its global shapes for their metadata; no device runs it.
+            return out
+        kind = _COLLECTIVE_OPS.get(func, "all-to-all" if func._opname == "shard_dim_alltoall" else None)
+        if kind is not None:
+            nbytes = out.numel() * out.element_size()
+            self.bytes_by_type[kind] += nbytes
+            self.counts[kind] += 1
+            self.largest[kind] = max(self.largest[kind], nbytes)
+        returns = func._schema.returns
+        for i, t in enumerate(out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(t, torch.Tensor) and not (i < len(returns) and returns[i].alias_info is not None):
+                self._allocated(t)
+        return out
+
+    def _allocated(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._known or key in self._live:
+            return
+        self._live[key] = st.nbytes()
+        self.live_bytes += self._live[key]
+        self.temp_bytes = max(self.temp_bytes, self.live_bytes)
+        weakref.finalize(st, self._freed, key)
+
+    def _freed(self, key: int) -> None:
+        self.live_bytes -= self._live.pop(key)
+
+    def collectives(self) -> dict:
+        return {"bytes_by_type": dict(self.bytes_by_type), "counts": dict(self.counts),
+                "total_bytes": sum(self.bytes_by_type.values()), "largest_bytes": dict(self.largest)}
+
+
+@contextlib.contextmanager
+def _alltoall_as_on_the_card():
+    """DTensor moves a Shard(i) -> Shard(j) block with one all-to-all, but on
+    a mesh of device type ``cpu`` (the dry-run's) it gathers the whole
+    tensor and keeps its chunk instead, as gloo has no all-to-all.  Within
+    this context it issues the all-to-all op (its meta kernel gives the
+    block), so the count is that of the card's program."""
+    from torch.distributed.tensor import placement_types
+
+    if not (hasattr(placement_types, "shard_dim_alltoall") and hasattr(torch.ops._dtensor, "shard_dim_alltoall")):
+        yield
+        return
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(input, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+
+    saved = placement_types.shard_dim_alltoall
+    placement_types.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = saved
+
+
 @contextlib.contextmanager
 def fake_mesh(mesh) -> DeviceMesh:
     """A ``DeviceMesh`` of ``mesh``'s axis sizes on the CPU over a ``fake``
@@ -175,11 +293,12 @@ def _inputs(model, cfg: ArchConfig, cell: ShapeCell) -> dict:
     return inputs
 
 
-def sharded_dot_flops(model, cfg: ArchConfig, cell: ShapeCell, state: dict, axes, optimizer: AdamW, mesh,
-                      rules: dict, seq_shard: bool = False) -> int:
-    """One device's matrix-product FLOPs in one run of the cell's step on
-    ``mesh`` (a ``DeviceMesh``), its state, batch and caches sharded as the
-    dry-run accounts them."""
+def sharded_run(model, cfg: ArchConfig, cell: ShapeCell, state: dict, axes, optimizer: AdamW, mesh,
+                rules: dict, seq_shard: bool = False) -> dict:
+    """One device's matrix-product FLOPs (``dot_flops``), collectives and
+    temporary bytes in one run of the cell's step on ``mesh`` (a
+    ``DeviceMesh``), its state, batch and caches sharded as the dry-run
+    accounts them."""
     sh = state_shardings(state, axes, mesh, rules)
     state = shard_state(state, sh)
     inputs = _inputs(model, cfg, cell)
@@ -191,7 +310,10 @@ def sharded_dot_flops(model, cfg: ArchConfig, cell: ShapeCell, state: dict, axes
         step = on_mesh((make_prefill_step if cell.kind == "prefill" else make_serve_step)(model, cfg), mesh, rules)
         args = (state["params"], shard_state(first, batch_shardings(first, mesh)),
                 shard_state(inputs["caches"], cache_shardings(inputs["caches"], cfg, mesh, seq_shard)))
-    return _count(step, args)
+    device = DeviceCounter(args)
+    with _alltoall_as_on_the_card():
+        flops = _count(step, args, device)
+    return {"dot_flops": flops, "collectives": device.collectives(), "temp_size_in_bytes": device.temp_bytes}
 
 
 def whole_dot_flops(model, cfg: ArchConfig, cell: ShapeCell, state: dict, optimizer: AdamW, mesh,
@@ -210,9 +332,11 @@ def whole_dot_flops(model, cfg: ArchConfig, cell: ShapeCell, state: dict, optimi
         return _count(step, args)
 
 
-def _count(step, args) -> int:
+def _count(step, args, device: DeviceCounter | None = None) -> int:
+    """The dot FLOPs of ``step(*args)``; ``device``, a ``DeviceCounter``
+    beneath the FLOP counter, counts the same run."""
     try:
-        with DotFlops() as counter:
+        with device or contextlib.nullcontext(), DotFlops() as counter:
             step(*args)
     finally:
         L.reset_moe_counts()  # the run's counters hold meta tensors
@@ -221,7 +345,8 @@ def _count(step, args) -> int:
 
 def account(cfg: ArchConfig, cell: ShapeCell, mesh, rules_name: str = "default", seq_shard: bool = False) -> dict:
     """The dry-run's record of one cell on ``mesh`` (anything ``mesh_shape``
-    reads): ``memory`` (per-device bytes), ``dot_flops`` (per device) and
+    reads): ``memory`` (per-device bytes, ``temp_size_in_bytes`` among
+    them), ``dot_flops`` and ``collectives`` (per device) and
     ``global_dot_flops`` (the whole step)."""
     rules = RULE_SETS[rules_name]
     model = make_model(cfg)
@@ -247,13 +372,16 @@ def account(cfg: ArchConfig, cell: ShapeCell, mesh, rules_name: str = "default",
         # takes hours on meta: only the whole step's count is recorded.
         total = fit_in_seq(lambda s: whole_dot_flops(model, cfg, dataclasses.replace(cell, seq_len=s), state,
                                                      optimizer, mesh, rules), cell.seq_len)
-        device, how = None, "seq fit " + "/".join(map(str, FIT_SEQ)) + " of the whole step; per device not counted"
+        device = {"dot_flops": None, "collectives": None, "temp_size_in_bytes": None}
+        how = "seq fit " + "/".join(map(str, FIT_SEQ)) + " of the whole step; per device not counted"
     else:
         total = whole_dot_flops(model, cfg, cell, state, optimizer, mesh, rules)
         with fake_mesh(mesh) as dmesh:
-            device = sharded_dot_flops(model, cfg, cell, state, axes, optimizer, dmesh, rules, seq_shard)
+            device = sharded_run(model, cfg, cell, state, axes, optimizer, dmesh, rules, seq_shard)
         how = "run"
-    return {"memory": memory, "dot_flops": device, "global_dot_flops": total, "dot_flops_from": how}
+    memory["temp_size_in_bytes"] = device["temp_size_in_bytes"]
+    return {"memory": memory, "dot_flops": device["dot_flops"], "collectives": device["collectives"],
+            "global_dot_flops": total, "dot_flops_from": how}
 
 
 def run_cell(
@@ -350,11 +478,12 @@ def main(argv: list[str] | None = None) -> None:
                         remat=args.remat, rules_name=args.rules, dp=args.dp, reduced=args.reduced,
                     )
                     path.write_text(json.dumps(res, indent=2))
-                    m = res["memory"]
+                    m, coll = res["memory"], res["collectives"]
                     print(
                         f"[ok] {label}: {res['account_s']}s "
-                        f"args/device={m['argument_size_in_bytes']:.3e}B dot_flops/device={res['dot_flops']} "
-                        f"global={res['global_dot_flops']:.3e}",
+                        f"args/device={m['argument_size_in_bytes']:.3e}B temp/device={m['temp_size_in_bytes']} "
+                        f"dot_flops/device={res['dot_flops']} global={res['global_dot_flops']:.3e} "
+                        f"collective_bytes/device={coll and coll['total_bytes']}",
                         flush=True,
                     )
                 except Exception as e:

@@ -49,10 +49,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Ten
     """Mean CE over non-ignored positions + z-loss. logits fp32 (B,S,V)."""
     mask = (labels != IGNORE_INDEX).to(torch.float32)
     safe = torch.where(labels == IGNORE_INDEX, 0, labels).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    # DTensor's gather over a vocab-sharded dim yields a masked partial it
-    # cannot reduce: the gold logit is read from vocab-replicated logits.
-    gold = torch.gather(constrain(logits, "batch", "seq", None), -1, safe[..., None])[..., 0]
+    split = L.vocab_split(logits, -1)
+    if split:  # logits split on vocab by a mesh: read where they lie
+        logz, gold = L.vocab_parallel_logz_gold(logits, safe, split)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(constrain(logits, "batch", "seq", None), -1, safe[..., None])[..., 0]
     ce = (logz - gold) * mask
     n = torch.clamp(mask.sum(), min=1.0)
     loss = ce.sum() / n
@@ -116,7 +118,7 @@ def make_train_step(model, cfg: ArchConfig, optimizer: AdamW, accum_steps: int =
             total, metrics = loss_fn(tracked, batch)
             total.backward()
         grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, tracked)
-        return total.detach(), metrics, grads
+        return total.detach(), metrics, tree_map(_reduced_like, grads, params)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
@@ -139,6 +141,16 @@ def make_train_step(model, cfg: ArchConfig, optimizer: AdamW, accum_steps: int =
         return new_state, metrics
 
     return train_step
+
+
+def _reduced_like(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """On a mesh, a gradient that is a partial sum (a param replicated over
+    the data-parallel ranks gets one) is reduced here, once, onto its
+    param's placements; left partial, DTensor would reduce it again at
+    each of AdamW's reads (the norm, both moments, the update)."""
+    if isinstance(grad, DTensor) and any(p.is_partial() for p in grad.placements):
+        return grad.redistribute(grad.device_mesh, param.placements)
+    return grad
 
 
 def on_mesh(fn: Callable, mesh, rules=None) -> Callable:

@@ -107,21 +107,111 @@ def embedding_init(scope: Scope, name: str, vocab: int, dim: int) -> None:
 
 
 def embedding_apply(p: Params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The rows of ``tokens`` in the compute dtype (times sqrt(d) where the
+    config scales them).  Where a mesh splits the table's vocab dim, each
+    device looks up its own row range (``_vocab_parallel_lookup``)."""
+    split = vocab_split(p["table"], 0)
+    if split:
+        return _vocab_parallel_lookup(p["table"], tokens, cfg, split)
+    return _lookup(constrain(p["table"], None, "embed"), tokens, cfg)
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     # F.embedding, not table[tokens]: its backward on CUDA sums each row's
     # gradients in a fixed order, where indexing's accumulates with atomics,
     # so a training run and its restart from a checkpoint agree bit for bit.
-    # On a mesh the lookup reads a vocab-replicated table: DTensor's lookup
-    # into a vocab-sharded one gives a masked partial whose gradient it
-    # cannot redistribute.
-    x = F.embedding(tokens, constrain(p["table"], None, "embed")).to(cdtype(cfg))
+    x = F.embedding(tokens, table).to(cdtype(cfg))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
     return x
 
 
+def vocab_split(t: torch.Tensor, dim: int) -> list[int]:
+    """The mesh dims that split dim ``dim`` of ``t`` (none off a mesh, for a
+    plain tensor, on a 1 x 1 mesh, or where the shard-if-divisible rules
+    left the dim whole)."""
+    if not isinstance(t, DTensor):
+        return []
+    dim %= t.ndim
+    return [i for i, p in enumerate(t.placements) if p.is_shard(dim) and t.device_mesh.size(i) > 1]
+
+
+def _block_start(t: DTensor, dim: int) -> int:
+    """Where this rank's block of ``t`` starts along ``dim`` (split evenly,
+    mesh dim by mesh dim in order, as DTensor lays it out)."""
+    mesh, length, start = t.device_mesh, t.shape[dim], 0
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(t.placements):
+        if p.is_shard(dim):
+            length //= mesh.size(i)
+            start += coord[i] * length
+    return start
+
+
+def _whole(t: DTensor, dims: list[int]) -> DTensor:
+    """``t`` reduced over the mesh dims ``dims`` (partial there)."""
+    return t.redistribute(t.device_mesh, [Replicate() if i in dims else p for i, p in enumerate(t.placements)])
+
+
+def _vocab_parallel_lookup(table: DTensor, tokens: torch.Tensor, cfg: ArchConfig, split: list[int]) -> torch.Tensor:
+    """The lookup into a table whose vocab dim the mesh dims ``split``
+    divide: each device reads its own rows ``[lo, lo + V/m)``, sends the
+    tokens outside them to its row 0 and zeroes those rows, and the blocks
+    are summed over ``split`` (one all-reduce of the (..., d) output; a sum
+    of one row and zeros, so the values are those of the whole table).
+    The table's gradient stays on its rows: no gather of the table, and no
+    reduce of a V x d tensor over the vocab dims."""
+    mesh = table.device_mesh
+    tokens = _as_dtensor(tokens, mesh)
+    lo, rows = _block_start(table, 0), table.to_local().shape[0]
+
+    def lookup(block, tok):
+        local = tok - lo
+        inside = (local >= 0) & (local < rows)
+        return _lookup(block, torch.where(inside, local, 0), cfg).masked_fill(~inside[..., None], 0)
+
+    tok_in = [Replicate() if i in split else p for i, p in enumerate(tokens.placements)]
+    table_in = [Shard(0) if i in split else Replicate() for i in range(mesh.ndim)]
+    # The table's gradient is a partial sum over the mesh dims that split the tokens.
+    table_grad = [Shard(0) if i in split else Partial() if p.is_shard() else Replicate() for i, p in enumerate(tok_in)]
+    out = [Partial() if i in split else p for i, p in enumerate(tok_in)]
+    x = _local(lookup, out, [table_in, tok_in], [table, tokens], [table_grad, tok_in])
+    return _whole(x, split)
+
+
+def vocab_parallel_logz_gold(logits: DTensor, labels: torch.Tensor, split: list[int]) -> tuple[DTensor, DTensor]:
+    """``(logsumexp(logits, -1), logits[..., labels])`` of fp32 logits whose
+    vocab dim the mesh dims ``split`` divide, with no gather of the logits:
+    the max over the vocab (detached; an all-reduce of max), each device's
+    sum of ``exp(x - max)`` over its columns, and the gold logit from the
+    device whose columns hold the label (the others give 0), the last two
+    summed over ``split``; three all-reduces of a (B, S) tensor."""
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    labels = _as_dtensor(labels, mesh)
+    lo, cols = _block_start(logits, last), logits.to_local().shape[-1]
+    x_in = [Replicate() if p.is_partial() else p for p in logits.placements]
+    rows_in = [p if p.is_shard() and p.dim < last else Replicate() for p in x_in]
+    rows_out = lambda op: [Partial(op) if i in split else p for i, p in enumerate(rows_in)]
+
+    def terms(x, y, m):
+        local = y - lo
+        inside = (local >= 0) & (local < cols)
+        gold = torch.gather(x, -1, torch.where(inside, local, 0)[..., None])[..., 0]
+        return torch.exp(x - m[..., None]).sum(-1), torch.where(inside, gold, 0.0)
+
+    m = _whole(_local(lambda x: x.detach().amax(-1), rows_out("max"), [x_in], [logits]), split)
+    total, gold = _local(terms, (rows_out("sum"), rows_out("sum")), [x_in, rows_in, rows_in], [logits, labels, m])
+    return m + torch.log(_whole(total, split)), _whole(gold, split)
+
+
 def logits_apply(embed_p: Params, head_p: Params | None, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Final LM head; fp32 logits. Tied -> embedding transpose."""
+    """Final LM head; fp32 logits. Tied -> embedding transpose.  Where a
+    mesh splits the vocab, a partial-sum ``x`` (the residual stream DTensor
+    left unreduced) is reduced first, so the logits come out split on the
+    vocab rather than as a partial sum of (..., V) logits to be reduced."""
     w = (embed_p["table"] if head_p is None else head_p["w"]).float()
+    if isinstance(x, DTensor) and vocab_split(w, 0 if head_p is None else 1):
+        x = _whole(x, [i for i, p in enumerate(x.placements) if p.is_partial()])
     return x.float() @ (w.T if head_p is None else w)
 
 
@@ -252,10 +342,11 @@ def _as_dtensor(t, mesh) -> DTensor:
     return t if isinstance(t, DTensor) else DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
-def _local(fn, out_placements, in_placements, args):
+def _local(fn, out_placements, in_placements, args, grad_placements=None):
     """``fn`` run by ``local_map`` on each device's blocks of ``args``
-    (redistributed to ``in_placements``), its gradients made contiguous
-    where they cross the blocks' edges."""
+    (redistributed to ``in_placements``; their gradients placed as
+    ``grad_placements`` say, by default as the inputs), its gradients made
+    contiguous where they cross the blocks' edges."""
     contig = lambda t: _ContiguousGrad.apply(t) if t.requires_grad else t
 
     def run(*a):
@@ -263,6 +354,7 @@ def _local(fn, out_placements, in_placements, args):
         return tuple(map(contig, out)) if isinstance(out, tuple) else contig(out)
 
     return local_map(run, out_placements=out_placements, in_placements=tuple(in_placements),
+                     in_grad_placements=None if grad_placements is None else tuple(grad_placements),
                      device_mesh=args[0].device_mesh, redistribute_inputs=True)(*args)
 
 

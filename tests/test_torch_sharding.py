@@ -275,6 +275,14 @@ JAX_MESH_SCRIPT = textwrap.dedent(
             st["params"], S.batch_shardings(t, mesh24), S.cache_shardings(c, qcfg, mesh24))).lower(
             state["params"], t, c).compile()
     out["dot_flops"] = {name: analyze(x.as_text()).corrected_dot_flops for name, x in (("train", train), ("decode", decode))}
+    # hlo_analysis' per-device collective bytes of reduced qwen3's train
+    # step on a data-only (8, 1) mesh.
+    mesh81 = _mk((8, 1), ("data", "model"))
+    with mesh81, axis_rules(mesh81):
+        st = S.state_shardings(state, axes, mesh81)
+        x = jax.jit(S.make_train_step(qmodel, qcfg, opt), in_shardings=(st, S.batch_shardings(b, mesh81)),
+                    out_shardings=(st, None)).lower(state, b).compile()
+    out["collectives_8x1"] = analyze(x.as_text()).corrected_coll_bytes
     for arch in ("grok_1_314b", "starcoder2_3b"):
         acfg = get_reduced(arch)
         amodel = make_model(acfg)
@@ -422,74 +430,110 @@ from repro_torch.launch.mesh import _mk
 from repro_torch.nn.module import init_with_axes
 from repro_torch.optim.adamw import AdamW
 import dataclasses
+from repro_torch import tree as T
 
-cfg = dataclasses.replace(get_reduced("qwen3_8b"), dtype="float32")
-model = make_model(cfg)
-opt = AdamW(learning_rate=1e-3)
-state = torch.load(TMP / "state.pt")
-batch = torch.load(TMP / "batch.pt")
-_, axes = init_with_axes(model.init, 0, device="meta")
 mesh = _mk((2, 4), ("data", "model"), "cpu")
-sh = S.state_shardings(state, axes, mesh)
-step = S.make_sharded_train_step(model, cfg, opt, sh)
-dstate = S.shard_state(state, sh)
-dbatch = S.shard_state(batch, S.batch_shardings(batch, mesh))
-new, metrics = step(dstate, dbatch)
-w = new["params"]["prefix_0"]["ffn"]["w_gate"]
-full = T.tree_map(lambda x: x.full_tensor(), new)
-if RANK == 0:
-    torch.save(full, TMP / "sharded_state.pt")
-emit({"loss": float(metrics["loss"]), "w_gate_local": w.to_local().numpy().tobytes().hex()[:64],
-      "w_gate_placements": [f"S{p.dim}" if p.is_shard() else "R" for p in w.placements],
-      "same_placements": all(str(a.placements) == str(b.placements)
-                             for a, b in zip(T.leaves(new), T.leaves(dstate)))})
-""".replace("import dataclasses", "import dataclasses\nfrom repro_torch import tree as T")
+placed = lambda x: [f"S{p.dim}" if p.is_shard() else "R" for p in x.placements]
+local_hex = lambda x: x.to_local().detach().numpy().tobytes().hex()[:64]
+out = {}
+for case, arch in TRAIN_CASES.items():
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    model = make_model(cfg)
+    opt = AdamW(learning_rate=1e-3)
+    state = torch.load(TMP / f"state_{case}.pt")
+    batch = torch.load(TMP / f"batch_{case}.pt")
+    _, axes = init_with_axes(model.init, 0, device="meta")
+    sh = S.state_shardings(state, axes, mesh)
+    step = S.make_sharded_train_step(model, cfg, opt, sh)
+    dstate = S.shard_state(state, sh)
+    dbatch = S.shard_state(batch, S.batch_shardings(batch, mesh))
+    logits, _ = S.on_mesh(model.train_logits, mesh)(dstate["params"], dbatch["inputs"])
+    new, metrics = step(dstate, dbatch)
+    w = new["params"]["prefix_0"]["ffn"]["w_gate"]
+    table = new["params"]["embed"]["table"]
+    full = T.tree_map(lambda x: x.full_tensor(), new)
+    if RANK == 0:
+        torch.save(full, TMP / f"sharded_state_{case}.pt")
+    out[case] = {"loss": float(metrics["loss"]), "w_gate_local": local_hex(w), "w_gate_placements": placed(w),
+                 "table_local": local_hex(table), "table_placements": placed(table),
+                 "logits_local": local_hex(logits), "logits_placements": placed(logits),
+                 "same_placements": all(str(a.placements) == str(b.placements)
+                                        for a, b in zip(T.leaves(new), T.leaves(dstate)))}
+emit(out)
+"""
+
+# case -> reduced arch: qwen3 (untied head), gemma3 (tied head, scaled
+# embeddings), and qwen3 on a batch with ignored labels.
+TRAIN_CASES = {"qwen3": "qwen3_8b", "gemma3": "gemma3_1b", "qwen3_ignore": "qwen3_8b"}
+# The params' bar after one AdamW step, (rtol, atol).  gemma3's is the bar
+# tests/test_torch_recurrent_train.py holds AdamW-amplified params to
+# (PARAM_ATOL): its one-process port and JAX already differ by up to 7.5e-5
+# after one step, elements whose gradient is near zero, off any mesh.
+PARAM_BARS = {"qwen3": (2e-5, 2e-5), "gemma3": (0.0, 3e-4), "qwen3_ignore": (2e-5, 2e-5)}
 
 
 def test_train_step_on_8_ranks_matches_one_process_and_jax(tmp_path):
     """The counterpart of ``tests/test_sharding.py::test_multidevice_train_step_runs``:
     reduced qwen3 in fp32 from the JAX init, a (2, 4) mesh of 8 ranks, the
-    reference's batch.  The sharded step's loss and AdamW moments (after one
-    step, the clipped gradient and its square) equal the port's one-process
-    step and the JAX step within 1e-5 relative; its params within the bar
-    ``tests/test_torch_train.py`` holds one step to (rtol = atol = 2e-5), since
-    AdamW turns rounding in near-zero gradients into parameter gaps of 3e-5
-    of a leaf's largest value between the one-process port and JAX too.  The
-    new state keeps its shardings, and ``ffn/w_gate`` has 4 distinct local
-    shards along ``model``."""
-    jcfg = dataclasses.replace(jcfgs.get_reduced("qwen3_8b"), dtype="float32")
-    tcfg = dataclasses.replace(tcfgs.get_reduced("qwen3_8b"), dtype="float32")
-    jmodel = jcfgs.make_model(jcfg)
-    jopt = JAdamW(learning_rate=1e-3)
-    jstate, _ = jsteps.init_state(jmodel, jcfg, jopt, jax.random.PRNGKey(0))
-    toks = np.random.default_rng(0).integers(0, jcfg.vocab, (4, 33)).astype(np.int32)
-    jbatch = {"inputs": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(toks[:, 1:])}
-    jnew, jm = jax.jit(jsteps.make_train_step(jmodel, jcfg, jopt))(jstate, jbatch)
-
+    reference's batch; reduced gemma3 (a tied head: the logits are the
+    vocab-split table's transpose) the same way; and qwen3 on that batch
+    with every third label ``IGNORE_INDEX``.  The sharded step's loss and
+    AdamW moments (after one step, the clipped gradient and its square)
+    equal the port's one-process step and the JAX step within 1e-5
+    relative; its params within the bar ``tests/test_torch_train.py``
+    holds one step to (rtol = atol = 2e-5), since AdamW turns rounding in
+    near-zero gradients into parameter gaps of 3e-5 of a leaf's largest
+    value between the one-process port and JAX too (gemma3's within
+    ``PARAM_BARS``' wider one, for the same reason).  The new state keeps
+    its shardings, and ``ffn/w_gate`` has 4 distinct local shards along
+    ``model``.  The vocab stays split: the embedding table's new value and
+    the logits are ``Shard`` on the vocab dim over ``model``, 4 distinct
+    local blocks each (the vocab-parallel lookup and loss)."""
     from repro_torch.launch.train import port_state
 
     to_t = lambda tree: T.tree_map(lambda x: torch.from_numpy(np.array(x)), tree)
-    state = port_state(to_t(jax.tree_util.tree_map(np.asarray, jstate)))
-    batch = {k: torch.from_numpy(np.array(v)) for k, v in jbatch.items()}
-    torch.save(state, tmp_path / "state.pt")
-    torch.save(batch, tmp_path / "batch.pt")
-    tmodel = tcfgs.make_model(tcfg)
-    one, m1 = tsteps.make_train_step(tmodel, tcfg, TAdamW(learning_rate=1e-3))(state, batch)
+    want, made = {}, {}
+    for case, arch in TRAIN_CASES.items():
+        if arch not in made:  # one JAX init and compiled step an arch
+            jcfg = dataclasses.replace(jcfgs.get_reduced(arch), dtype="float32")
+            tcfg = dataclasses.replace(tcfgs.get_reduced(arch), dtype="float32")
+            jmodel, jopt = jcfgs.make_model(jcfg), JAdamW(learning_rate=1e-3)
+            jstate, _ = jsteps.init_state(jmodel, jcfg, jopt, jax.random.PRNGKey(0))
+            made[arch] = (jcfg, jstate, jax.jit(jsteps.make_train_step(jmodel, jcfg, jopt)),
+                          port_state(to_t(jax.tree_util.tree_map(np.asarray, jstate))),
+                          tsteps.make_train_step(tcfgs.make_model(tcfg), tcfg, TAdamW(learning_rate=1e-3)))
+        jcfg, jstate, jstep, state, tstep = made[arch]
+        toks = np.random.default_rng(0).integers(0, jcfg.vocab, (4, 33)).astype(np.int32)
+        labels = toks[:, 1:].copy()
+        if case.endswith("_ignore"):
+            labels[:, ::3] = jsteps.IGNORE_INDEX
+        jbatch = {"inputs": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(labels)}
+        jnew, jm = jstep(jstate, jbatch)
+        batch = {k: torch.from_numpy(np.array(v)) for k, v in jbatch.items()}
+        torch.save(state, tmp_path / f"state_{case}.pt")
+        torch.save(batch, tmp_path / f"batch_{case}.pt")
+        one, m1 = tstep(state, batch)
+        want[case] = (one, float(m1["loss"]), port_state(to_t(jax.tree_util.tree_map(np.asarray, jnew))),
+                      float(jm["loss"]))
 
-    outs = run_ranks(tmp_path, 8, TRAIN_RANKS)
-    sharded = torch.load(tmp_path / "sharded_state.pt")
-    jone = port_state(to_t(jax.tree_util.tree_map(np.asarray, jnew)))
-    assert abs(outs[0]["loss"] - float(m1["loss"])) <= 1e-5 * abs(float(m1["loss"]))
-    assert abs(outs[0]["loss"] - float(jm["loss"])) <= 1e-5 * abs(float(jm["loss"]))
-    for (path, got), (_, want), (_, jwant) in zip(T.flatten_with_path(sharded), T.flatten_with_path(one),
-                                                  T.flatten_with_path(jone)):
-        if path[0] == "opt" and path[1] in ("m", "v"):
-            assert rel(got.numpy(), want.numpy()) < 1e-5 and rel(got.numpy(), jwant.numpy()) < 1e-5, path
-        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5, atol=2e-5, err_msg=str(path))
-        np.testing.assert_allclose(got.numpy(), jwant.numpy(), rtol=2e-5, atol=2e-5, err_msg=str(path))
-    assert all(o["same_placements"] for o in outs)
-    assert outs[0]["w_gate_placements"] == ["R", "S1"]
-    assert len({o["w_gate_local"] for o in outs}) == 4
+    outs = run_ranks(tmp_path, 8, f"TRAIN_CASES = {TRAIN_CASES!r}\n" + TRAIN_RANKS)
+    for case, (one, loss, jone, jloss) in want.items():
+        got = [o[case] for o in outs]
+        sharded = torch.load(tmp_path / f"sharded_state_{case}.pt")
+        assert abs(got[0]["loss"] - loss) <= 1e-5 * abs(loss), case
+        assert abs(got[0]["loss"] - jloss) <= 1e-5 * abs(jloss), case
+        for (path, g), (_, w), (_, jw) in zip(T.flatten_with_path(sharded), T.flatten_with_path(one),
+                                              T.flatten_with_path(jone)):
+            if path[0] == "opt" and path[1] in ("m", "v"):
+                assert rel(g.numpy(), w.numpy()) < 1e-5 and rel(g.numpy(), jw.numpy()) < 1e-5, (case, path)
+            rtol, atol = PARAM_BARS[case]
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=rtol, atol=atol, err_msg=f"{case} {path}")
+            np.testing.assert_allclose(g.numpy(), jw.numpy(), rtol=rtol, atol=atol, err_msg=f"{case} {path}")
+        assert all(o["same_placements"] for o in got), case
+        assert got[0]["w_gate_placements"] == ["R", "S1"]
+        assert len({o["w_gate_local"] for o in got}) == 4
+        assert got[0]["table_placements"] == ["R", "S0"] and got[0]["logits_placements"] == ["S0", "S2"], got[0]
+        assert len({o["table_local"] for o in got}) == 4 and len({o["logits_local"] for o in got}) == 8, case
 
 
 # ---------------------------------------------------------------------------
@@ -524,7 +568,8 @@ def test_dryrun_accounting_matches_reference(jax_mesh_run):
         "batch": ref_device_bytes({k: P(lead, None) for k in bspec}, bspec, shape),
     }
     want["argument_size_in_bytes"] = sum(want.values())
-    assert got["memory"] == want
+    assert {k: v for k, v in got["memory"].items() if k != "temp_size_in_bytes"} == want
+    assert got["memory"]["temp_size_in_bytes"] > 0
 
     per_device = jout["dot_flops"]["train"]
     assert abs(got["dot_flops"] / per_device - 1) < 0.02, (got["dot_flops"], per_device)
@@ -547,10 +592,142 @@ def test_dryrun_seq_fit_is_exact():
         dryrun.fit_in_seq(lambda s: s**3, 4096)
 
 
+def test_collective_counter_closed_forms():
+    """``DeviceCounter`` on hand-built redistributions over a fake (2, 4)
+    mesh: Shard -> Replicate is one all-gather of the gathered tensor's
+    bytes, Partial -> Replicate one all-reduce of the whole tensor,
+    Partial -> Shard one reduce-scatter of the shard, and Shard(0) ->
+    Shard(1) one all-to-all of the block received."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    def dt(local_shape, placements, shape, dtype=torch.float32):
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(torch.empty(local_shape, dtype=dtype, device="meta"), mesh, placements,
+                                  run_check=False, shape=shape, stride=stride)
+
+    cases = [
+        (((4, 8), [Replicate(), Shard(0)], (16, 8)), [Replicate(), Replicate()], "all-gather", 16 * 8 * 4),
+        (((16, 8), [Partial(), Replicate()], (16, 8), torch.bfloat16), [Replicate(), Replicate()], "all-reduce",
+         16 * 8 * 2),
+        (((16, 8), [Replicate(), Partial()], (16, 8)), [Replicate(), Shard(0)], "reduce-scatter", 4 * 8 * 4),
+        (((4, 8), [Replicate(), Shard(0)], (16, 8)), [Replicate(), Shard(1)], "all-to-all", 16 * 2 * 4),
+    ]
+    with dryrun.fake_mesh(MeshShape(data=2, model=4)) as mesh:
+        for args, target, kind, nbytes in cases:
+            x = dt(*args)
+            with dryrun._alltoall_as_on_the_card(), dryrun.DeviceCounter((x,)) as counter:
+                x.redistribute(mesh, target)
+            coll = counter.collectives()
+            assert coll["counts"] == {**dict.fromkeys(dryrun.COLLECTIVES, 0), kind: 1}, (kind, coll)
+            assert coll["bytes_by_type"][kind] == coll["total_bytes"] == nbytes, (kind, coll)
+
+
+def test_temp_bytes_closed_form():
+    """Allocate A and B, free A, allocate C (and a view of it): the peak of
+    live storages is max(A + B, B + C); the arguments' storages and views
+    of them count nothing."""
+    arg = torch.empty(1000, device="meta")
+    with dryrun.DeviceCounter((arg,)) as counter:
+        a = torch.empty(100, device="meta")  # 400 B
+        b = torch.empty(50, dtype=torch.float64, device="meta")  # 400 B
+        del a
+        c = torch.empty(300, device="meta")  # 1200 B
+        c.view(10, 30).add_(1)
+        arg.view(10, 100).mul_(2)
+        assert counter.live_bytes == 400 + 1200
+        del b, c
+    assert counter.temp_bytes == max(400 + 400, 400 + 1200) and counter.live_bytes == 0
+
+
+def test_dryrun_all_reduces_the_gradient_once_on_a_data_mesh(jax_mesh_run):
+    """Reduced qwen3's train step on a data-only (8, 1) mesh: its
+    all-reduce bytes are the fp32 gradient's (the params' bytes; one
+    reduce a gradient) within 1%, and equal ``hlo_analysis``' count of the
+    reference step on its 8-device (8, 1) mesh within 1%; nothing else is
+    sent."""
+    _, jout = jax_mesh_run
+    got = dryrun.account(tcfgs.get_reduced("qwen3_8b"), tcfgs.ShapeCell("train_4k", 64, 8, "train"),
+                         MeshShape(data=8, model=1))
+    coll = got["collectives"]
+    grad_bytes = got["memory"]["params"]
+    assert abs(coll["bytes_by_type"]["all-reduce"] / grad_bytes - 1) < 0.01, (coll, grad_bytes)
+    assert abs(coll["bytes_by_type"]["all-reduce"] / jout["collectives_8x1"]["all-reduce"] - 1) < 0.01, jout
+    assert coll["total_bytes"] == coll["bytes_by_type"]["all-reduce"], coll
+
+
+def test_vocab_forms_off_mesh_and_on_one_by_one_are_todays(tmp_path):
+    """Where the vocab is not split, the lookup and the loss are today's
+    code: off a mesh, ``embedding_apply`` and ``cross_entropy`` equal the
+    replicated forms (``F.embedding`` on the whole table, ``logsumexp`` and
+    a gather of the gold logit) bit for bit, for qwen3 (untied) and gemma3
+    (tied, scaled), with ``IGNORE_INDEX`` labels.  On a 1 x 1 mesh (a
+    one-rank ``gloo`` group in this process) the lookup, the logits and the
+    loss of DTensor params equal the plain ones bit for bit, and so does a
+    whole train step of qwen3.  (gemma3's whole step is not held: its
+    ``k_norm`` gradients differ in the last bit on a 1 x 1 mesh with or
+    without the vocab forms; ROADMAP.md §C.)"""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch import tree
+    from repro_torch.launch.mesh import _mk
+    from repro_torch.nn import layers as L
+
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 512, (2, 17)))
+    labels = toks[:, 1:].clone()
+    labels[:, ::4] = tsteps.IGNORE_INDEX
+    batch = {"inputs": toks[:, :-1], "labels": labels}
+    runs = {}
+    for arch in ("qwen3_8b", "gemma3_1b"):
+        cfg = dataclasses.replace(tcfgs.get_reduced(arch), n_layers=2)
+        model, opt = tcfgs.make_model(cfg), TAdamW(learning_rate=1e-3)
+        state, axes = tsteps.init_state(model, cfg, opt, seed=0, device="cpu")
+        table = state["params"]["embed"]["table"]
+        want = F.embedding(batch["inputs"], table).to(getattr(torch, cfg.dtype))
+        if cfg.embed_scale:
+            want = want * torch.tensor(cfg.d_model**0.5, dtype=want.dtype)
+        assert torch.equal(L.embedding_apply(state["params"]["embed"], batch["inputs"], cfg), want)
+        logits, _ = model.train_logits(state["params"], batch["inputs"])
+        mask = (labels != tsteps.IGNORE_INDEX).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, torch.where(labels == tsteps.IGNORE_INDEX, 0, labels)[..., None])[..., 0]
+        n = torch.clamp(mask.sum(), min=1.0)
+        ce = ((logz - gold) * mask).sum() / n
+        total = ce + tsteps.Z_LOSS_WEIGHT * ((logz * mask) ** 2).sum() / n
+        got_total, got_ce = tsteps.cross_entropy(logits, labels)
+        assert torch.equal(got_total, total) and torch.equal(got_ce, ce), arch
+        runs[arch] = (model, cfg, opt, state, axes)
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}", rank=0, world_size=1)
+    try:
+        mesh = _mk((1, 1), ("data", "model"), "cpu")
+        for arch, (model, cfg, opt, state, axes) in runs.items():
+            sh = tsteps.state_shardings(state, axes, mesh)
+            dstate = tsteps.shard_state(tree.tree_map(torch.clone, state), sh)
+            dbatch = tsteps.shard_state(batch, tsteps.batch_shardings(batch, mesh))
+            emb = tsteps.on_mesh(L.embedding_apply, mesh)(dstate["params"]["embed"], dbatch["inputs"], cfg)
+            assert torch.equal(emb.full_tensor(), L.embedding_apply(state["params"]["embed"], batch["inputs"], cfg))
+            logits, _ = tsteps.on_mesh(model.train_logits, mesh)(dstate["params"], dbatch["inputs"])
+            plain_logits, _ = model.train_logits(state["params"], batch["inputs"])
+            assert torch.equal(logits.full_tensor(), plain_logits), arch
+            got = tsteps.on_mesh(tsteps.cross_entropy, mesh)(logits, dbatch["labels"])
+            assert all(torch.equal(a.full_tensor(), b) for a, b in zip(got, tsteps.cross_entropy(plain_logits, labels)))
+            if arch == "gemma3_1b":
+                continue
+            new, m = tsteps.make_sharded_train_step(model, cfg, opt, sh)(dstate, dbatch)
+            plain, pm = tsteps.make_train_step(model, cfg, opt)(state, batch)
+            assert torch.equal(m["loss"], pm["loss"]), arch
+            for (path, a), (_, b) in zip(tree.flatten_with_path(new), tree.flatten_with_path(plain)):
+                assert torch.equal(a.full_tensor(), b), (arch, path)
+    finally:
+        dist.destroy_process_group()
+
+
 def test_dryrun_cli_all_reduced(background):
     """``--all --mesh single --reduced`` exits 0 with a record per cell,
     each with its whole step's dot FLOPs and, but for the recurrent archs'
-    train and prefill cells, one device's share of them."""
+    train and prefill cells, one device's share of them, its collectives
+    (bytes and counts by type, and their total) and its temporary bytes."""
     tmp, job = background["dryrun"]
     rc, out, err = job.result()
     assert rc == 0, out[-3000:] + err[-3000:]
@@ -561,3 +738,11 @@ def test_dryrun_cli_all_reduced(background):
     for r in records:  # per device: all but the recurrent archs' train and prefill cells
         recurrent = tcfgs.get_config(r["arch"]).recurrent is not None and r["kind"] != "decode"
         assert (r["dot_flops"] is None) if recurrent else 0 < r["dot_flops"] <= r["global_dot_flops"], r
+        assert "temp_size_in_bytes" in r["memory"] and "collectives" in r, r
+        if recurrent:
+            assert r["memory"]["temp_size_in_bytes"] is None and r["collectives"] is None, r
+        else:
+            coll = r["collectives"]
+            assert r["memory"]["temp_size_in_bytes"] > 0, r
+            assert set(coll["bytes_by_type"]) == set(coll["counts"]) == set(dryrun.COLLECTIVES), r
+            assert coll["total_bytes"] == sum(coll["bytes_by_type"].values()) > 0, r

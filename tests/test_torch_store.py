@@ -19,7 +19,7 @@ import repro_torch.core as tcore
 
 ROOT = Path(__file__).resolve().parents[1]
 MODULES = ("cluster", "iomodel", "layout", "tiers", "codec", "scrub", "sched", "arbiter", "store", "resilience",
-           "dstore")
+           "dstore", "simulator")
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -35,6 +35,16 @@ def test_training_module_copy_matches_reference(path):
     """The training plane's copied modules: each equals its original with the
     package read as ``repro_torch`` (the corpus a store holds is then the same
     bytes whichever package wrote it)."""
+    ref = (ROOT / "src" / "repro" / path).read_text()
+    port = (ROOT / "src" / "repro_torch" / path).read_text()
+    assert port == ref.replace("repro.", "repro_torch.")
+
+
+@pytest.mark.parametrize("path", ["apps/__init__.py", "apps/shuffle.py", "apps/terasort.py", "apps/groupby.py"])
+def test_apps_module_copy_matches_reference(path):
+    """The data-analytics apps (the shuffle engine, TeraSort, group-by): each
+    equals its original with the package read as ``repro_torch``, so both
+    packages write and read the same records, spills and outputs."""
     ref = (ROOT / "src" / "repro" / path).read_text()
     port = (ROOT / "src" / "repro_torch" / path).read_text()
     assert port == ref.replace("repro.", "repro_torch.")
