@@ -170,13 +170,18 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                  launches; save MB/s, restore s
 13k. dryrun      ``repro_torch.launch.dryrun.run_cell`` (meta tensors; the
                  step run on DTensors over a fake process group of the
-                 production world size) for qwen3-8b train_4k and
+                 production world size; in a process of its own on the
+                 host, started after the build, so it overlaps the card's
+                 phases and its seconds are those of a shared host) for
+                 qwen3-8b train_4k and
                  deepseek-v3-671b decode_32k on 16x16 and 2x16x16:
                  per-device argument and temporary bytes (their sum beside
                  the card's), the collectives one device issues (bytes and
                  counts by type, their total; none of qwen3's carries a
-                 device's (B, S, V) fp32 logits), dot FLOPs per device and
-                 for the whole step
+                 device's (B, S, V) fp32 logits), dot FLOPs per device
+                 (qwen3's at most 1.02 of its share) and for the whole
+                 step; and xlstm-125m train_4k on 16x16, its per-device
+                 counts fitted in the sequence length
 13l. terasort    TeraGen, TeraSort and TeraValidate through the port's
                  ``repro_torch.apps`` on the host, 2,000,000 records (200 MB)
                  in each of fig7's storage modes (tls, ofs, mem): validated,
@@ -2277,45 +2282,83 @@ def restore_sharded_serve_phase(record: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def dryrun_phase(record: dict) -> None:
+DRYRUN_TIMEOUT_S = 900  # the cells take ~3 min on the card's host, alone
+DRYRUN_CELLS = [(arch, shape, multi) for arch, shape in (("qwen3_8b", "train_4k"), ("deepseek_v3_671b", "decode_32k"))
+                for multi in (False, True)] + [("xlstm_125m", "train_4k", False)]
+
+
+def dryrun_cells() -> None:
+    """``run_cell``'s record of each of ``DRYRUN_CELLS``, one JSON line each
+    (what ``start_dryrun``'s process prints)."""
+    from repro_torch.launch.dryrun import run_cell
+
+    for arch, shape, multi in DRYRUN_CELLS:
+        print(json.dumps(run_cell(arch, shape, multi)), flush=True)
+
+
+def start_dryrun(logs: Path) -> subprocess.Popen:
+    """``dryrun_cells`` in a process of its own, its output in ``logs``
+    (files: a pipe left unread would stall it).  The dry-run runs on the
+    host's CPU on meta tensors and never touches the card, so it overlaps
+    the card's phases instead of adding minutes to the script."""
+    logs.mkdir(parents=True, exist_ok=True)
+    with open(logs / "dryrun.out", "w") as out, open(logs / "dryrun.err", "w") as err:
+        return subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke.dryrun_cells()"], cwd=ROOT,
+                                stdout=out, stderr=err)
+
+
+def dryrun_phase(record: dict, proc: subprocess.Popen, logs: Path) -> None:
     """``repro_torch.launch.dryrun.run_cell`` (meta tensors; the step run
     once on DTensors over a fake process group of the production world
-    size, in this process) for qwen3-8b ``train_4k`` and deepseek-v3-671b
+    size, in ``start_dryrun``'s process) for qwen3-8b ``train_4k`` and deepseek-v3-671b
     ``decode_32k`` on the 16x16 and 2x16x16 meshes: per-device bytes of the
     arguments and of the step's temporaries beside this card's memory, the
     collectives one device issues (bytes by type, their total), and the
     step's dot FLOPs per device and whole.  No collective of qwen3's step
-    may carry a (B_local, S, V) fp32 tensor: the vocab stays split."""
+    may carry a (B_local, S, V) fp32 tensor: the vocab stays split; and a
+    device's dot FLOPs of it are at most 1.02 times the whole step's over
+    the devices (every product split).  xlstm-125m ``train_4k`` on 16x16,
+    a recurrent cell, has its per-device counts from a fit in the sequence
+    length."""
     import torch
 
     from repro_torch.configs import SHAPES, get_config
-    from repro_torch.launch.dryrun import run_cell
 
+    if proc.wait(timeout=DRYRUN_TIMEOUT_S) != 0:
+        raise AssertionError(f"the dry-run process exited {proc.returncode}: "
+                             f"{(logs / 'dryrun.err').read_text()[-3000:]}")
+    records = [json.loads(line) for line in (logs / "dryrun.out").read_text().splitlines() if line.startswith("{")]
+    if len(records) != len(DRYRUN_CELLS):
+        raise AssertionError(f"{len(records)} dry-run records for {len(DRYRUN_CELLS)} cells")
     card = torch.cuda.get_device_properties(0).total_memory
     rows = []
-    for arch, shape in (("qwen3_8b", "train_4k"), ("deepseek_v3_671b", "decode_32k")):
-        for multi in (False, True):
-            r = run_cell(arch, shape, multi)
-            mem, coll = r["memory"], r["collectives"]
-            per_device = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
-            row = dict(arch=arch, shape=shape, mesh=r["mesh"], n_devices=r["n_devices"], memory=mem,
-                       argument_size_in_bytes=mem["argument_size_in_bytes"],
-                       temp_size_in_bytes=mem["temp_size_in_bytes"], per_device_bytes=per_device, card_bytes=card,
-                       fits_card=per_device <= card, collectives=coll["bytes_by_type"],
-                       collective_counts=coll["counts"], collective_total_bytes=coll["total_bytes"],
-                       collective_largest_bytes=coll["largest_bytes"], dot_flops=r["dot_flops"],
-                       global_dot_flops=r["global_dot_flops"], param_count=r["param_count"],
-                       seconds=r["account_s"])
-            emit("dryrun", **row)
-            if per_device <= 0 or not 0 < r["dot_flops"] <= r["global_dot_flops"] or coll["total_bytes"] <= 0:
-                raise AssertionError(f"empty dry-run record: {row}")
-            if shape == "train_4k":
-                cell, cfg = SHAPES[shape], get_config(arch)
-                dp = r["n_devices"] // 16  # the model axis is 16 on both meshes
-                logits = cell.global_batch // dp * cell.seq_len * cfg.vocab * 4
-                if max(coll["largest_bytes"].values()) >= logits:
-                    raise AssertionError(f"a collective carries the {logits} B of a device's logits: {row}")
-            rows.append(row)
+    for r in records:
+        arch, shape = r["arch"], r["shape"]
+        mem, coll = r["memory"], r["collectives"]
+        per_device = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        row = dict(arch=arch, shape=shape, mesh=r["mesh"], n_devices=r["n_devices"], memory=mem,
+                   argument_size_in_bytes=mem["argument_size_in_bytes"],
+                   temp_size_in_bytes=mem["temp_size_in_bytes"], per_device_bytes=per_device, card_bytes=card,
+                   fits_card=per_device <= card, collectives=coll["bytes_by_type"],
+                   collective_counts=coll["counts"], collective_total_bytes=coll["total_bytes"],
+                   collective_largest_bytes=coll["largest_bytes"], dot_flops=r["dot_flops"],
+                   global_dot_flops=r["global_dot_flops"],
+                   dot_flops_share=r["dot_flops"] / (r["global_dot_flops"] / r["n_devices"]),
+                   dot_flops_from=r["dot_flops_from"], param_count=r["param_count"], seconds=r["account_s"])
+        emit("dryrun", **row)
+        if per_device <= 0 or not 0 < r["dot_flops"] <= r["global_dot_flops"] or coll["total_bytes"] <= 0:
+            raise AssertionError(f"empty dry-run record: {row}")
+        if arch == "qwen3_8b" and row["dot_flops_share"] > 1.02:
+            raise AssertionError(f"a device computes more than its share of the step: {row}")
+        if arch == "xlstm_125m" and not r["dot_flops_from"].startswith("seq fit"):
+            raise AssertionError(f"the recurrent cell was not fitted: {row}")
+        if arch == "qwen3_8b":
+            cell, cfg = SHAPES[shape], get_config(arch)
+            dp = r["n_devices"] // 16  # the model axis is 16 on both meshes
+            logits = cell.global_batch // dp * cell.seq_len * cfg.vocab * 4
+            if max(coll["largest_bytes"].values()) >= logits:
+                raise AssertionError(f"a collective carries the {logits} B of a device's logits: {row}")
+        rows.append(row)
     record["dryrun"] = rows
 
 
@@ -2464,6 +2507,8 @@ def main() -> int:
     record: dict = {}
     t_start = t0 = time.perf_counter()
     paths = ops.build()
+    logs = ROOT / "build" / "chip_smoke"
+    dryrun = start_dryrun(logs)
     emit("build", seconds=time.perf_counter() - t0, arch="sm_90a",
          libraries={n: str(p.relative_to(ROOT)) for n, p in paths.items()})
     if out_dir:
@@ -2509,14 +2554,19 @@ def main() -> int:
         ("compress", lambda: compress_phase(record)),
         ("mesh_train", lambda: mesh_train_phase(record)),
         ("restore_sharded_serve", lambda: restore_sharded_serve_phase(record)),
-        ("dryrun", lambda: dryrun_phase(record)),
+        ("dryrun", lambda: dryrun_phase(record, dryrun, logs)),
         ("terasort", lambda: terasort_phase(record, smi)),
     ]
     seconds = {}
-    for name, run in phases:
-        t0 = time.perf_counter()
-        run()
-        seconds[name] = time.perf_counter() - t0
+    try:
+        for name, run in phases:
+            t0 = time.perf_counter()
+            run()
+            seconds[name] = time.perf_counter() - t0
+    finally:
+        if dryrun.poll() is None:
+            dryrun.kill()
+            dryrun.wait()
     emit("phase_seconds", **seconds, total=time.perf_counter() - t_start)
     print(json.dumps(kernels_line(record)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

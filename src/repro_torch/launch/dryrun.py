@@ -18,36 +18,36 @@ Per cell the dry-run:
      on those shardings: every leaf a DTensor over meta blocks, on a
      ``DeviceMesh`` of the production shape over a ``fake`` process group
      of its world size in this one process (collectives do nothing), the
-     step ``steps.on_mesh``.  A dispatch mode counts each DTensor product
-     at its global shapes divided by the mesh dims its output is split
-     over, and each plain one whole (``DotFlops``): the FLOPs of one
-     device's block, as the reference's ``corrected.dot_flops`` counts the
-     SPMD-partitioned program of one device.  The port's layers are
-     unrolled, so there is no loop trip count to correct for.  The recurrent archs' train and
+     step ``steps.on_mesh``.  A dispatch mode beneath DTensor
+     (``DeviceCounter``) counts each product at the shapes of the blocks
+     it runs on, the FLOPs of one device, as the reference's
+     ``corrected.dot_flops`` counts the SPMD-partitioned program of one
+     device.  The port's layers are unrolled, so there is no loop trip
+     count to correct for.  The recurrent archs' train and
      prefill steps loop over time steps in Python (the plain scans), which
-     on meta costs hours at 32k steps: there only ``global_dot_flops`` is
-     recorded, a polynomial of degree <= 2 in the sequence length (loops
-     linear, attention quadratic) interpolated through three short lengths
-     of a run on unsharded meta tensors and checked exactly at a fourth
-     (``dot_flops_from``); ``dot_flops`` is null, since DTensor chooses its
-     redistributions by their cost, which changes with the length, so a
-     short run's per-device count does not extrapolate;
+     on meta costs hours at 32k steps: there ``global_dot_flops`` is a
+     polynomial of degree <= 2 in the sequence length (loops linear,
+     attention quadratic) interpolated through three short lengths of a run
+     on unsharded meta tensors and checked exactly at a fourth, and one
+     device's counts (``dot_flops``, ``collectives``, temporaries) are each
+     fitted the same way through a window of short runs on the mesh and
+     checked at two further lengths (``fit_record_in_seq``), where the
+     model's own constraints fix every placement; which window, the record's
+     ``dot_flops_from`` says;
   5. records, from the same run on DTensors, one device's
-     ``collectives`` and ``memory["temp_size_in_bytes"]`` (``DeviceCounter``,
-     a dispatch mode beneath ``DotFlops`` that sees the plain ops DTensor
-     runs on the local blocks): every collective DTensor's
+     ``collectives`` and ``memory["temp_size_in_bytes"]`` (the same
+     ``DeviceCounter``): every collective DTensor's
      redistributions issue, counted by its output bytes on one device in
      the reference's keys, and the peak bytes
      of the storages the step allocates, each DTensor by its local block;
   6. writes JSON under ``build/dryrun_torch/`` (``--out``).
 
 Not recorded: XLA's ``cost_analysis`` (no compiled program to read it
-from), and the recurrent archs' per-device counts of their train and
-prefill cells (``dot_flops``, ``collectives`` and ``temp_size_in_bytes``
-are null there, for the reason in 4).
+from).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k --mesh both
+  python -m repro_torch.launch.dryrun --arch xlstm-125m,qwen3-8b --reduced
   python -m repro_torch.launch.dryrun --all [--force]
 """
 
@@ -109,30 +109,6 @@ def device_bytes(tree, shardings) -> int:
     return out
 
 
-class DotFlops(TorchDispatchMode):
-    """Counts the matrix products one device runs, 2·M·N·K each: a DTensor
-    product at its global shapes divided by the mesh dims its output is
-    split over (sharded, or a partial sum); a plain one whole, as every
-    device runs it (a ``local_map`` block runs plain products on its own
-    block).  A DTensor op reaches the mode before DTensor splits it, and
-    the per-block products it then runs do not."""
-
-    def __init__(self):
-        super().__init__()
-        self.flops = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        if func._overloadpacket in _DOTS:
-            flops = flop_registry[func._overloadpacket](*args, **kwargs, out_val=out)
-            if isinstance(out, DTensor):
-                mesh = out.device_mesh
-                flops //= math.prod(mesh.size(i) for i, p in enumerate(out.placements) if not p.is_replicate())
-            self.flops += flops
-        return out
-
-
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute")
 
 # DTensor's collectives (functional: each returns its output) -> the
@@ -146,10 +122,19 @@ _COLLECTIVE_OPS = {
 
 
 class DeviceCounter(TorchDispatchMode):
-    """One device's collectives and temporary bytes in a step run on
-    DTensors.  It hands every DTensor op on to DTensor (``NotImplemented``)
-    and sees the plain ops DTensor then runs on this device's blocks, and
-    the step's plain ops.
+    """One device's matrix-product FLOPs, collectives and temporary bytes in
+    a step run on DTensors (or, on plain tensors, the whole step's).  It
+    hands every DTensor op on to DTensor (``NotImplemented``) and sees the
+    plain ops DTensor then runs on this device's blocks, and the step's
+    plain ops.
+
+    ``dot_flops``: every product (mm, addmm, bmm, baddbmm) at the shapes it
+    runs at, 2·M·N·K each: a DTensor product at this device's blocks of its
+    operands, whether it splits the work (a sharded output, or a partial
+    sum of a split contraction) or repeats it (a replicated output, or a
+    partial sum computed from a partial operand, the same size on every
+    device), as the reference's ``corrected.dot_flops`` counts the
+    SPMD-partitioned program of one device.
 
     ``collectives``: each collective DTensor issues (the step calls none
     of ``torch.distributed``'s itself) by its output bytes on one device
@@ -172,11 +157,12 @@ class DeviceCounter(TorchDispatchMode):
         self.bytes_by_type = dict.fromkeys(COLLECTIVES, 0)
         self.counts = dict.fromkeys(COLLECTIVES, 0)
         self.largest = dict.fromkeys(COLLECTIVES, 0)
+        self.ops: list[tuple[str, int]] = []  # (type, bytes) of each collective, in program order
         self._args = [t.untyped_storage() for t in tree_leaves(args) if isinstance(t, torch.Tensor)
                       for t in [t.to_local() if isinstance(t, DTensor) else t]]
         self._known = {id(st) for st in self._args}
         self._live: dict[int, int] = {}
-        self.live_bytes = self.temp_bytes = 0
+        self.live_bytes = self.temp_bytes = self.dot_flops = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
@@ -187,12 +173,15 @@ class DeviceCounter(TorchDispatchMode):
             # DTensor's sharding propagation runs each op on fake tensors of
             # its global shapes for their metadata; no device runs it.
             return out
+        if func._overloadpacket in _DOTS:
+            self.dot_flops += flop_registry[func._overloadpacket](*args, **kwargs, out_val=out)
         kind = _COLLECTIVE_OPS.get(func, "all-to-all" if func._opname == "shard_dim_alltoall" else None)
         if kind is not None:
             nbytes = out.numel() * out.element_size()
             self.bytes_by_type[kind] += nbytes
             self.counts[kind] += 1
             self.largest[kind] = max(self.largest[kind], nbytes)
+            self.ops.append((kind, nbytes))
         returns = func._schema.returns
         for i, t in enumerate(out if isinstance(out, (tuple, list)) else (out,)):
             if isinstance(t, torch.Tensor) and not (i < len(returns) and returns[i].alias_info is not None):
@@ -260,12 +249,19 @@ def fake_mesh(mesh) -> DeviceMesh:
 
 
 FIT_SEQ = (8, 16, 24, 32)
+# Windows of sequence lengths for one device's counts of the recurrent archs'
+# train and prefill steps: (first, step) gives first + i * step for i < 5,
+# three to fit, two to check.  Below a config's first few dozen steps,
+# DTensor may place a product's gradient otherwise than at length (it picks
+# by cost), so a window that does not fit gives way to the next.
+DEVICE_FIT_WINDOWS = ((8, 8), (16, 16), (48, 16), (80, 16))
 
 
 def fit_in_seq(count, seq_len: int, points: tuple[int, ...] = FIT_SEQ) -> int:
     """``count(seq_len)`` for a count that is a polynomial of degree <= 2
     in the sequence length: interpolated through ``count`` at the first
-    three ``points``, and refused unless it gives the fourth exactly."""
+    three ``points``, and refused unless it gives each further point
+    exactly."""
     xs, ys = points[:3], [count(s) for s in points]
 
     def at(x: int) -> Fraction:
@@ -278,9 +274,50 @@ def fit_in_seq(count, seq_len: int, points: tuple[int, ...] = FIT_SEQ) -> int:
             total += term
         return total
 
-    if at(points[3]) != ys[3]:
+    if any(at(x) != y for x, y in zip(points[3:], ys[3:])):
         raise ValueError(f"count is not quadratic in the sequence length: {dict(zip(points, ys))}")
     return int(at(seq_len))
+
+
+def fit_record_in_seq(run, seq_len: int) -> tuple[dict, tuple[int, ...]]:
+    """``sharded_run``'s record at ``seq_len`` from runs at short lengths
+    (``run(s)``): each count fitted by ``fit_in_seq`` through the first
+    window of ``DEVICE_FIT_WINDOWS`` that fits every count and gives its two
+    further points exactly.  The largest collective of a type is the
+    largest of its ops' fitted bytes (the runs issue the same ops in the
+    same order, each of a size polynomial in the length; their maximum is
+    not).  Returns (record, the window's points)."""
+    failed, runs = {}, {}
+    for first, step in DEVICE_FIT_WINDOWS:
+        points = tuple(first + i * step for i in range(5))
+        records = {x: runs[x] if x in runs else runs.setdefault(x, run(x)) for x in points}
+
+        def fit(path):
+            def at(x):
+                node = records[x]
+                for key in path:
+                    node = node[key]
+                return node
+            node = at(points[0])
+            if isinstance(node, dict):
+                return {key: fit((*path, key)) for key in node if key != "largest_bytes"}
+            return fit_in_seq(at, seq_len, points)
+
+        try:
+            kinds = [[kind for kind, _ in records[x]["ops"]] for x in points]
+            if any(k != kinds[0] for k in kinds):
+                raise ValueError(f"the runs issue other collectives: {[len(k) for k in kinds]} ops")
+            record = fit(("dot_flops",)), fit(("collectives",)), fit(("temp_size_in_bytes",))
+            sizes = [fit_in_seq(lambda x: records[x]["ops"][i][1], seq_len, points) for i in range(len(kinds[0]))]
+        except ValueError as e:
+            failed[points] = str(e)
+            continue
+        largest = dict.fromkeys(COLLECTIVES, 0)
+        for kind, size in zip(kinds[0], sizes):
+            largest[kind] = max(largest[kind], size)
+        return {"dot_flops": record[0], "collectives": {**record[1], "largest_bytes": largest},
+                "temp_size_in_bytes": record[2]}, points
+    raise ValueError(f"no window fits one device's counts: {failed}")
 
 
 def _inputs(model, cfg: ArchConfig, cell: ShapeCell) -> dict:
@@ -313,7 +350,8 @@ def sharded_run(model, cfg: ArchConfig, cell: ShapeCell, state: dict, axes, opti
     device = DeviceCounter(args)
     with _alltoall_as_on_the_card():
         flops = _count(step, args, device)
-    return {"dot_flops": flops, "collectives": device.collectives(), "temp_size_in_bytes": device.temp_bytes}
+    return {"dot_flops": flops, "collectives": device.collectives(), "temp_size_in_bytes": device.temp_bytes,
+            "ops": device.ops}
 
 
 def whole_dot_flops(model, cfg: ArchConfig, cell: ShapeCell, state: dict, optimizer: AdamW, mesh,
@@ -333,14 +371,15 @@ def whole_dot_flops(model, cfg: ArchConfig, cell: ShapeCell, state: dict, optimi
 
 
 def _count(step, args, device: DeviceCounter | None = None) -> int:
-    """The dot FLOPs of ``step(*args)``; ``device``, a ``DeviceCounter``
-    beneath the FLOP counter, counts the same run."""
+    """The dot FLOPs of ``step(*args)``, counted by ``device`` (a fresh
+    ``DeviceCounter`` if none is given), which counts the same run."""
+    device = device or DeviceCounter(args)
     try:
-        with device or contextlib.nullcontext(), DotFlops() as counter:
+        with device:
             step(*args)
     finally:
         L.reset_moe_counts()  # the run's counters hold meta tensors
-    return counter.flops
+    return device.dot_flops
 
 
 def account(cfg: ArchConfig, cell: ShapeCell, mesh, rules_name: str = "default", seq_shard: bool = False) -> dict:
@@ -366,14 +405,18 @@ def account(cfg: ArchConfig, cell: ShapeCell, mesh, rules_name: str = "default",
     memory["argument_size_in_bytes"] = sum(memory.values())
 
     if cfg.recurrent is not None and cell.kind != "decode":
-        # DTensor picks its redistributions by their cost, which changes with
-        # the sequence length, so the per-device count of a short run does
-        # not extrapolate, and a full-length run of the Python time loop
-        # takes hours on meta: only the whole step's count is recorded.
-        total = fit_in_seq(lambda s: whole_dot_flops(model, cfg, dataclasses.replace(cell, seq_len=s), state,
-                                                     optimizer, mesh, rules), cell.seq_len)
-        device = {"dot_flops": None, "collectives": None, "temp_size_in_bytes": None}
-        how = "seq fit " + "/".join(map(str, FIT_SEQ)) + " of the whole step; per device not counted"
+        # A full-length run of the Python time loop takes hours on meta: the
+        # counts are polynomials in the sequence length (loops linear,
+        # attention quadratic), fitted through short runs.
+        at = lambda s: dataclasses.replace(cell, seq_len=s)
+        total = fit_in_seq(lambda s: whole_dot_flops(model, cfg, at(s), state, optimizer, mesh, rules),
+                           cell.seq_len)
+        with fake_mesh(mesh) as dmesh:
+            device, points = fit_record_in_seq(
+                lambda s: sharded_run(model, cfg, at(s), state, axes, optimizer, dmesh, rules, seq_shard),
+                cell.seq_len)
+        how = (f"seq fit {'/'.join(map(str, FIT_SEQ))} of the whole step; one device's: seq fit "
+               f"{'/'.join(map(str, points[:3]))}, checked at {'/'.join(map(str, points[3:]))}")
     else:
         total = whole_dot_flops(model, cfg, cell, state, optimizer, mesh, rules)
         with fake_mesh(mesh) as dmesh:
@@ -436,7 +479,7 @@ def cell_path(arch: str, shape_name: str, multi_pod: bool, tag: str = "", out: P
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default=None)
+    ap.add_argument("--arch", default=None, help="an arch, or several separated by commas")
     ap.add_argument("--shape", default=None)
     ap.add_argument("--mesh", choices=["single", "multi", "both"], default="both")
     ap.add_argument("--all", action="store_true")
@@ -454,7 +497,7 @@ def main(argv: list[str] | None = None) -> None:
     if args.all:
         archs = ARCH_IDS
     elif args.arch:
-        archs = [args.arch.replace("-", "_")]
+        archs = [a.replace("-", "_") for a in args.arch.split(",")]
     else:
         ap.error("--arch or --all required")
 

@@ -27,7 +27,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.lm import rematerialise
+from repro_torch.models.lm import rematerialise, to_stream
 from repro_torch.nn import layers as L
 from repro_torch.nn.module import Scope
 
@@ -110,8 +110,8 @@ class EncDec:
         cfg = self.cfg
         h = L.norm_apply(p["pre_norm"], x, cfg)
         a, _ = L.attention_apply(p["attn"], h, cfg, mode="train", use_rope=False, cross_kv=_kv(p["attn"], h))
-        x = x + a
-        return x + L.mlp_apply(p["ffn"], L.norm_apply(p["pre_ffn_norm"], x, cfg), cfg)
+        x = x + to_stream(a, cfg)
+        return x + to_stream(L.mlp_apply(p["ffn"], L.norm_apply(p["pre_ffn_norm"], x, cfg), cfg), cfg)
 
     # ------------------------------------------------------------- cross kv
 
@@ -145,12 +145,13 @@ class EncDec:
         cfg = self.cfg
         h = L.norm_apply(p["pre_self_norm"], x, cfg)
         sa, new_cache = L.attention_apply(p["self_attn"], h, cfg, cache=cache, mode=mode, use_rope=False)
-        x = x + sa
+        x = x + to_stream(sa, cfg, mode)
         h2 = L.norm_apply(p["pre_cross_norm"], x, cfg)
         ca, _ = L.attention_apply(p["cross_attn"], h2, cfg, mode="train", use_rope=False,
                                   cross_kv=(cross["k"], cross["v"]))
-        x = x + ca
-        return x + L.mlp_apply(p["ffn"], L.norm_apply(p["pre_ffn_norm"], x, cfg), cfg), new_cache
+        x = x + to_stream(ca, cfg, mode)
+        f = L.mlp_apply(p["ffn"], L.norm_apply(p["pre_ffn_norm"], x, cfg), cfg)
+        return x + to_stream(f, cfg, mode), new_cache
 
     def _embed_dec(self, params: Params, tokens: torch.Tensor, start: int) -> torch.Tensor:
         x = L.embedding_apply(params["decoder"]["embed"], tokens, self.cfg)

@@ -156,14 +156,27 @@ def make_layer_cache(spec: LayerSpec, cfg: ArchConfig, batch: int, max_seq: int,
     raise ValueError(spec.mixer)
 
 
+def to_stream(y: torch.Tensor, cfg: ArchConfig, mode: str = "train") -> torch.Tensor:
+    """``y`` placed as the residual stream: ``("batch", "seq", "act_embed")``,
+    or under ``cfg.seq_parallel`` in training ``("batch", "residual_seq",
+    None)`` (Megatron-SP: the stream stays sharded over 'model' on the
+    sequence dim between blocks).  On a block's output, a partial sum over
+    'model' on a mesh, this is where it is reduced, once and in the
+    activation dtype (a reduce-scatter under sequence parallelism), as the
+    reference's partitioner reduces it; left partial, DTensor would reduce
+    it in fp32 inside every norm that reads the stream, and again in the
+    backward."""
+    if cfg.seq_parallel and mode == "train":
+        return constrain(y, "batch", "residual_seq", None)
+    return constrain(y, "batch", "seq", "act_embed")
+
+
 def apply_layer(p: Params, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig,
                 cache: Any = None, mode: str = "train") -> tuple[torch.Tensor, Any, torch.Tensor]:
     """Residual layer body. Returns (x, new_cache, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.seq_parallel and mode == "train":
-        # Megatron-SP: the residual stream stays sharded over 'model' on
-        # the sequence dim between blocks.
-        x = constrain(x, "batch", "residual_seq", None)
+        x = to_stream(x, cfg, mode)
     h = L.norm_apply(p["pre_norm"], x, cfg)
     if spec.mixer == "gqa":
         mix, new_cache = L.attention_apply(p["mixer"], h, cfg, window=spec.window, cache=cache, mode=mode)
@@ -171,6 +184,7 @@ def apply_layer(p: Params, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig,
         mix, new_cache = L.mla_apply(p["mixer"], h, cfg, cache=cache, mode=mode)
     else:
         mix, new_cache = _RECURRENT_APPLY[spec.mixer](p["mixer"], h, cfg, state=cache)
+    mix = to_stream(mix, cfg, mode)
     if cfg.post_norms:
         mix = L.norm_apply(p["post_mixer_norm"], mix, cfg)
     x = x + mix
@@ -180,6 +194,7 @@ def apply_layer(p: Params, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig,
             f, aux = L.moe_apply(p["ffn"], h2, cfg)
         else:
             f = L.mlp_apply(p["ffn"], h2, cfg)
+        f = to_stream(f, cfg, mode)
         if cfg.post_norms:
             f = L.norm_apply(p["post_ffn_norm"], f, cfg)
         x = x + f

@@ -267,7 +267,12 @@ def _head_rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
     xf = x.float()
     y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (y * scale.float()).to(dt)
+    # The scale's gradient sums the output's gradient over every position:
+    # made contiguous, it sums in one order whatever layout the attention's
+    # backward (plain, or DTensor's) gives it, so a step on a 1 x 1 mesh
+    # equals the plain step bit for bit.
+    out = (y * scale.float()).to(dt)
+    return _ContiguousGrad.apply(out) if out.requires_grad else out
 
 
 def make_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype, device="cuda") -> dict:
@@ -313,6 +318,70 @@ def _attend(
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(b, s, h, dh)
+
+
+# The card's bf16 peak (989 TFLOP/s) and its NVLink rate a direction (450
+# GB/s): what ``_project_kv`` prices a duplicated projection and a moved key at.
+PEAK_FLOPS, LINK_BYTES = 989e12, 450e9
+
+
+def _project_kv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, q: torch.Tensor | None) -> torch.Tensor:
+    """Keys or values, ``einsum("bsd,dhk->bshk", x, w)`` (+ ``b``).
+
+    On a mesh whose split of the query heads (over s devices) the KV heads
+    do not divide, but divide s, the result has s head slots split as q's
+    heads, slot j holding kv head j * KV / s, so each device's attention
+    block finds its kv head at home.  A device's slot comes one of two ways:
+    - it projects the slot itself from its rows of ``x``, as the
+      reference's partitioner places it: each kv head on the s / KV devices
+      that read it, so every device repeats (1 - KV / s) of the work;
+    - or it projects every kv head for its 1 / s of the sequence, its share
+      of the work, and an all-to-all brings each device its slot.
+    The second is taken where the FLOPs it saves outlast the bytes it moves
+    at the card's rates (``PEAK_FLOPS``, ``LINK_BYTES``; under autograd the
+    saving counts three products, the move two).  ``x``'s and ``w``'s
+    gradients are partial sums over the devices either way.  Left to
+    DTensor, ``w``'s replicated kv dim would make every device project
+    every kv head."""
+    kv = w.shape[1]
+    dims = [i for i, p in enumerate(q.placements) if p.is_shard(2)] if isinstance(q, DTensor) else []
+    s = _shards(q, 2) if dims else 1
+    if s == 1 or kv % s == 0 or s % kv or not isinstance(x, DTensor):
+        y = torch.einsum("bsd,dhk->bshk", x, w)
+        return y if b is None else y + b
+    mesh, seq, d = x.device_mesh, x.shape[1], x.shape[2]
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    saved = (3 if grad else 1) * 2 * d * (1 - kv / s) / PEAK_FLOPS
+    moved = (2 if grad else 1) * x.element_size() * (1 - 1 / s) / LINK_BYTES
+    split_seq = seq % s == 0 and saved > moved
+    x_in = [Replicate() if i in dims else p for i, p in enumerate(x.placements)]
+    x_grad = [Partial() if i in dims else p for i, p in enumerate(x_in)]
+    w_grad = [Partial() if i in dims or p.is_shard() else Replicate() for i, p in enumerate(x_in)]
+    slots = [Shard(2) if i in dims else p for i, p in enumerate(x_in)]
+    params = [w] if b is None else [w, b]
+    if split_seq:
+        lo, n = _block_start(q, 2) * seq // q.shape[2], seq // s
+        heads, rows, out = slice(None), slice(lo, lo + n), [Shard(1) if i in dims else p for i, p in enumerate(x_in)]
+    else:
+        head = _block_start(q, 2) * kv // q.shape[2]
+        heads, rows, out = slice(head, head + 1), slice(None), slots
+
+    def project(xl, wl, bl=None):
+        y = torch.einsum("bsd,dhk->bshk", xl[:, rows], wl[:, heads])
+        y = y if bl is None else y + bl[heads]
+        return y.repeat_interleave(s // kv, dim=2) if split_seq else y
+
+    y = _local(project, out, [x_in] + [[Replicate()] * mesh.ndim] * len(params),
+               [x] + [_as_dtensor(t, mesh) for t in params], [x_grad] + [w_grad] * len(params))
+    return y.redistribute(mesh, slots) if split_seq else y
+
+
+def _kv_heads(t: torch.Tensor, kv: int) -> torch.Tensor:
+    """The KV heads of keys or values that ``_project_kv`` laid out in head
+    slots (every slot gathered; one slot a kv head), for a cache."""
+    if t.shape[2] == kv:
+        return t
+    return constrain(t, "batch", None, None, None)[:, :, :: t.shape[2] // kv]
 
 
 def _split(*xs) -> bool:
@@ -422,11 +491,9 @@ def attention_apply(
         out = _attend(q, k, v, mask, cfg)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), cache
 
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
-    if "bk" in p:
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
+    bias = lambda name: p[name].to(dt) if name in p else None
+    k = _project_kv(x, p["wk"].to(dt), bias("bk"), q if mode != "decode" else None)
+    v = _project_kv(x, p["wv"].to(dt), bias("bv"), q if mode != "decode" else None)
 
     if cfg.qk_norm:
         q = _head_rms(q, p["q_norm"], cfg.norm_eps)
@@ -502,6 +569,8 @@ def attention_apply(
         else:
             out = _attend(q, k, v, _causal_window_mask(s, s, 0, window, dev), cfg)
         new_cache = cache
+        if mode == "prefill":
+            k, v = _kv_heads(k, cfg.n_kv_heads), _kv_heads(v, cfg.n_kv_heads)
         if mode == "prefill" and tiered:
             if cache.length:
                 # The causal mask above only covers this chunk's tokens, so

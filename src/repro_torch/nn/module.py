@@ -493,6 +493,15 @@ def current_dp_groups() -> int:
     return max(sizes.get("pod", 1) * sizes.get("data", 1), 1)
 
 
+def splits(shape: tuple[int, ...], *logical: str | None) -> bool:
+    """Whether the active ``axis_rules`` split a value of ``shape`` whose
+    dims are named ``logical`` (False off-mesh)."""
+    if not _AXIS_CTX:
+        return False
+    mesh, rules = _AXIS_CTX[-1]
+    return any(a is not None for a in resolve_axes(tuple(logical), tuple(shape), mesh, rules))
+
+
 def _place(x: DTensor, placements: tuple) -> DTensor:
     if tuple(x.placements) == placements:
         return x

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.nn.layers import _gelu
-from repro_torch.nn.module import Scope, constrain
+from repro_torch.nn.module import Scope, constrain, splits
 
 Params = Any
 
@@ -149,6 +149,19 @@ def rglru_make_state(cfg: ArchConfig, batch: int, dtype, device="cuda") -> dict:
     }
 
 
+def _by_heads(t: torch.Tensor, nh: int) -> torch.Tensor:
+    """``t`` (B, S, nh * dh), and its gradient, placed on a mesh as its
+    ``nh`` heads split, each device holding its heads' columns, or whole
+    where the heads do not divide over the mesh: a split of the width that
+    cuts a head cannot regroup into heads (nor, in the backward, can the
+    gradient), and one that the products leave elsewhere would be moved at
+    every step of the scan."""
+    b, s, w = t.shape
+    if splits((nh,), "act_heads"):
+        return constrain(t.reshape(b, s, nh, w // nh), "batch", "seq", "act_heads", None).reshape(b, s, w)
+    return constrain(t, "batch", "seq", None)
+
+
 # ---------------------------------------------------------------------------
 # mLSTM — matrix memory with exponential gating (xLSTM)
 # ---------------------------------------------------------------------------
@@ -202,7 +215,10 @@ def mlstm_block_apply(
     nh = cfg.n_heads
     dh = dp // nh
 
-    up = x @ p["w_up"].to(dt)
+    # (Constrained so that on a mesh its gradient comes back split as w_up's
+    # columns are: gathered whole for the slices, it would make every device
+    # compute all of w_up's gradient.)
+    up = constrain(x @ p["w_up"].to(dt), "batch", "seq", "act_ff")
     x_in, z = up[..., :dp], up[..., dp:]
     conv_state = None if state is None else state["conv"].to(dt)
     x_conv, new_conv = conv1d_apply(p["conv"], x_in, conv_state)
@@ -211,8 +227,11 @@ def mlstm_block_apply(
     # Heads-major (B, H, S, dh) and (B, H, S), as the kernel takes them; on
     # a mesh, these and h (and h's gradient) are whole sums: the scan writes
     # its steps into a tensor laid out as q, which DTensor cannot do for a
-    # partial sum.
-    heads = lambda t: constrain(t.reshape(b, s, nh, dh).float().transpose(1, 2).contiguous(),
+    # partial sum.  Where the heads do not divide over the mesh, the (B, S,
+    # dp) values are whole before they regroup into heads (and their
+    # gradients before they regroup back): a width split cuts a head.
+    whole = (lambda t: t) if splits((nh,), "act_heads") else (lambda t: constrain(t, "batch", "seq", None))
+    heads = lambda t: constrain(whole(t).reshape(b, s, nh, dh).float().transpose(1, 2).contiguous(),
                                 "batch", "act_heads", None, None)
     q = heads(x_conv @ p["wq"].to(dt))
     k = heads(x_conv @ p["wk"].to(dt)) / math.sqrt(dh)
@@ -232,7 +251,7 @@ def mlstm_block_apply(
         h, carry = ops.mlstm_chunkwise(q, k, v, ip, fp, carry)
     else:
         h, carry = ref.mlstm_ref(q, k, v, ip, fp, carry)
-    h = constrain(h, "batch", "act_heads", None, None).transpose(1, 2).reshape(b, s, dp).to(dt)
+    h = whole(constrain(h, "batch", "act_heads", None, None).transpose(1, 2).reshape(b, s, dp)).to(dt)
 
     h = h + p["skip"].to(dt) * x_conv
     y = (h * F.silu(z)) @ p["w_down"].to(dt)
@@ -283,16 +302,16 @@ def slstm_block_apply(
     nh = cfg.n_heads
     dh = d // nh
 
-    pre = {g: (x @ p[f"w_{g}"].to(dt) + p[f"b_{g}"].to(dt)).float() for g in "ifzo"}
+    # On a mesh each device steps its own heads' cells (``_by_heads``).
+    pre = {g: _by_heads((x @ p[f"w_{g}"].to(dt) + p[f"b_{g}"].to(dt)).float(), nh) for g in "ifzo"}
     if state is None:
         state = slstm_make_state(cfg, b, x.device)
-    c, n, m, h = state["c"], state["n"], state["m"], state["h"]
+    c, n, m, h = (_by_heads(state[key][:, None], nh)[:, 0] for key in "cnmh")  # (placed as the gates)
     r_mats = {g: p[f"r_{g}"].float() for g in "ifzo"}
 
     hs = []
     for t in range(s):
-        # On a mesh, an h split over its width cannot regroup into heads.
-        hh = constrain(h, "batch", None).reshape(b, nh, dh)
+        hh = h.reshape(b, nh, dh)
         rec = {g: torch.einsum("bhd,hde->bhe", hh, r_mats[g]).reshape(b, d) for g in "ifzo"}
         ip = pre["i"][:, t] + rec["i"]
         fp = pre["f"][:, t] + rec["f"]
@@ -309,7 +328,7 @@ def slstm_block_apply(
         h = op * c / torch.clamp(n, min=1.0)
         m = m_new
         hs.append(h)
-    h_seq = torch.stack(hs, dim=1).to(dt)
+    h_seq = _by_heads(torch.stack(hs, dim=1), nh).to(dt)  # (its gradient placed once, not at every step)
 
     ff = p["w_ff_up"].shape[1] // 2
     up = h_seq @ p["w_ff_up"].to(dt)

@@ -42,25 +42,30 @@ def run_ranks(tmp_path: Path, world: int, body: str, timeout: float = 240.0) -> 
     """Run ``body`` on ``world`` ranks; each rank's last JSON line, by rank."""
     tag = f"{world}_{time.monotonic_ns()}"
     script = tmp_path / f"ranks_{tag}.py"
-    script.write_text(PREAMBLE + textwrap.dedent(body) + "\ndist.destroy_process_group()\n")
+    # The barrier: a rank that leaves while a slower one still reads its
+    # last collective resets the slower one's connection.
+    script.write_text(PREAMBLE + textwrap.dedent(body) + "\ndist.barrier()\ndist.destroy_process_group()\n")
     init = tmp_path / f"pg_{tag}"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     env.pop("XLA_FLAGS", None)
-    procs = [
-        subprocess.Popen([sys.executable, str(script), str(r), str(world), str(init), str(tmp_path)],
-                         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(world)
-    ]
+    # Each rank writes to files, not pipes: a rank blocked on a full pipe
+    # that is not read yet would hold the others at the final barrier.
+    logs = [(tmp_path / f"out_{tag}_{r}.txt", tmp_path / f"err_{tag}_{r}.txt") for r in range(world)]
+    procs = []
+    for r, (out_path, err_path) in enumerate(logs):
+        with open(out_path, "w") as out, open(err_path, "w") as err:
+            procs.append(subprocess.Popen([sys.executable, str(script), str(r), str(world), str(init), str(tmp_path)],
+                                          env=env, stdout=out, stderr=err, text=True))
     deadline = time.monotonic() + timeout
-    outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1.0)))
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    outs = [(out.read_text(), err.read_text()) for out, err in logs]
     for r, (p, (out, err)) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{err[-4000:]}"
     return [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
