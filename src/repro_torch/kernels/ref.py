@@ -160,16 +160,19 @@ def mlstm_ref(
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """Sequential mLSTM from ``state`` = (C, n, m) (the empty history if
     None).  Returns (h (B,H,S,D) in q's dtype, the final (C, n, m) in fp32)
-    — the JAX oracle's h, plus the carry the model keeps for decode."""
+    — the JAX oracle's h, plus the carry the model keeps for decode.  ``v``
+    may hold some of each head's value rows (B,H,S,Dv): C is then (B,H,Dv,D)
+    and h (B,H,S,Dv), those rows of the whole heads' (each row of C reads
+    only its own value)."""
     b, h, s, d = q.shape
     if state is None:
         state = (
-            torch.zeros((b, h, d, d), dtype=torch.float32, device=q.device),
+            torch.zeros((b, h, v.shape[-1], d), dtype=torch.float32, device=q.device),
             torch.zeros((b, h, d), dtype=torch.float32, device=q.device),
             torch.full((b, h), float("-inf"), dtype=torch.float32, device=q.device),
         )
     carry = tuple(t.float() for t in state)
-    out = torch.empty_like(q)
+    out = torch.empty_like(v)  # q's dtype (and, where v has q's shape, q's placement on a mesh)
     for t in range(s):
         carry, out[:, :, t] = mlstm_step(carry, q[:, :, t], k[:, :, t], v[:, :, t], i_pre[:, :, t], f_log[:, :, t])
     return out, carry

@@ -283,10 +283,13 @@ def fit_record_in_seq(run, seq_len: int) -> tuple[dict, tuple[int, ...]]:
     """``sharded_run``'s record at ``seq_len`` from runs at short lengths
     (``run(s)``): each count fitted by ``fit_in_seq`` through the first
     window of ``DEVICE_FIT_WINDOWS`` that fits every count and gives its two
-    further points exactly.  The largest collective of a type is the
-    largest of its ops' fitted bytes (the runs issue the same ops in the
-    same order, each of a size polynomial in the length; their maximum is
-    not).  Returns (record, the window's points)."""
+    further points exactly, the number of collectives of each type too.
+    The largest collective of a type is the largest of its ops' fitted
+    bytes: the runs send the same ops in the same order, each of a size
+    polynomial in the length (their maximum is not) — where they send
+    more ops the longer they run (a scan's step that communicates, once a
+    step), once an op repeated back to back is taken once.  Returns
+    (record, the window's points)."""
     failed, runs = {}, {}
     for first, step in DEVICE_FIT_WINDOWS:
         points = tuple(first + i * step for i in range(5))
@@ -304,11 +307,14 @@ def fit_record_in_seq(run, seq_len: int) -> tuple[dict, tuple[int, ...]]:
             return fit_in_seq(at, seq_len, points)
 
         try:
-            kinds = [[kind for kind, _ in records[x]["ops"]] for x in points]
+            ops = {x: records[x]["ops"] for x in points}
+            if len({len(o) for o in ops.values()}) > 1:
+                ops = {x: [op for i, op in enumerate(o) if i == 0 or op != o[i - 1]] for x, o in ops.items()}
+            kinds = [[kind for kind, _ in ops[x]] for x in points]
             if any(k != kinds[0] for k in kinds):
                 raise ValueError(f"the runs issue other collectives: {[len(k) for k in kinds]} ops")
             record = fit(("dot_flops",)), fit(("collectives",)), fit(("temp_size_in_bytes",))
-            sizes = [fit_in_seq(lambda x: records[x]["ops"][i][1], seq_len, points) for i in range(len(kinds[0]))]
+            sizes = [fit_in_seq(lambda x: ops[x][i][1], seq_len, points) for i in range(len(kinds[0]))]
         except ValueError as e:
             failed[points] = str(e)
             continue

@@ -493,13 +493,19 @@ def current_dp_groups() -> int:
     return max(sizes.get("pod", 1) * sizes.get("data", 1), 1)
 
 
+def active_spec(shape: tuple[int, ...], *logical: str | None) -> tuple:
+    """``resolve_axes``' entries for a value of ``shape`` whose dims are
+    named ``logical`` under the active ``axis_rules`` (all None off-mesh)."""
+    if not _AXIS_CTX:
+        return (None,) * len(shape)
+    mesh, rules = _AXIS_CTX[-1]
+    return resolve_axes(tuple(logical), tuple(shape), mesh, rules)
+
+
 def splits(shape: tuple[int, ...], *logical: str | None) -> bool:
     """Whether the active ``axis_rules`` split a value of ``shape`` whose
     dims are named ``logical`` (False off-mesh)."""
-    if not _AXIS_CTX:
-        return False
-    mesh, rules = _AXIS_CTX[-1]
-    return any(a is not None for a in resolve_axes(tuple(logical), tuple(shape), mesh, rules))
+    return any(a is not None for a in active_spec(shape, *logical))
 
 
 def _place(x: DTensor, placements: tuple) -> DTensor:
