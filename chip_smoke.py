@@ -811,9 +811,9 @@ def profile_serve(model, cfg, params, prompts, caches, out_dir: Path | None, pha
 
 def profile_breakdown(fn, table: Path | None, top: int = 6) -> dict:
     """Wall time of ``fn`` (ending in a synchronise) under torch.profiler, the
-    device time its kernels took, their share of the wall time, and the
-    kernels with the most device time.  The profiler's table by host time
-    goes to ``table`` when one is given."""
+    summed device time of its operations (overlapping ones and copy-engine
+    copies each counted whole), and the kernels with the most device time.
+    The profiler's table by host time goes to ``table`` when one is given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -830,7 +830,7 @@ def profile_breakdown(fn, table: Path | None, top: int = 6) -> dict:
     dev = lambda e: e.self_device_time_total / 1e3  # us -> ms
     device_ms = sum(dev(e) for e in kernels)
     kernels.sort(key=dev, reverse=True)
-    return dict(wall_ms=wall_ms, device_ms=device_ms, device_busy_share=device_ms / wall_ms,
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
                 top_kernels=[dict(name=e.key[:60], ms=dev(e), calls=e.count) for e in kernels[:top]])
 
 

@@ -221,8 +221,10 @@ def main() -> None:
                 print(f"sessions {rep['sessions']} (retired {rep['retired']}) over "
                       f"{rep['steps']} steps, max_batch {args.max_batch}")
                 print(f"decode {rep['decoded_tokens']} tokens: {rep['decode_s']:.3f}s "
-                      f"({rep['decode_tok_per_s']:,.0f} tok/s aggregate)")
-                print(f"ttft p50 {rep['ttft_p50_s']*1e3:.1f}ms  p99 {rep['ttft_p99_s']*1e3:.1f}ms")
+                      f"({rep['decode_tok_per_s']:,.0f} tok/s aggregate), "
+                      f"{rep['decode_wait_s']:.3f}s of it waiting for tokens")
+                print(f"ttft p50 {rep['ttft_p50_s']*1e3:.1f}ms  p99 {rep['ttft_p99_s']*1e3:.1f}ms, "
+                      f"cache allocation {rep['alloc_s']:.3f}s over {rep['prefills']} admissions")
                 print(f"tier overflow: {rep['demotions']} demotions, "
                       f"{rep['evictions']} evictions, {rep['resumes']} resumes")
                 if "dedup_ratio" in rep:

@@ -29,6 +29,7 @@ from repro_torch.models.lm import make_layer_cache
 from repro_torch.nn import layers as L
 from repro_torch.nn.module import NamedSharding, axis_rules, constrain, logical_to_pspec, mesh_shape
 from repro_torch.optim.adamw import AdamW, apply_updates
+from repro_torch.runtime.trace import span
 from repro_torch.serving import TieredKVCache
 from repro_torch.tree import map_with_path, tree_map
 
@@ -113,12 +114,13 @@ def make_train_step(model, cfg: ArchConfig, optimizer: AdamW, accum_steps: int =
     loss_fn = make_loss_fn(model, cfg)
 
     def grad_fn(params: PyTree, batch: dict) -> tuple[torch.Tensor, dict, PyTree]:
-        tracked = tree_map(lambda p: p.detach().requires_grad_(p.is_floating_point()), params)
-        with torch.enable_grad():
-            total, metrics = loss_fn(tracked, batch)
-            total.backward()
-        grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, tracked)
-        return total.detach(), metrics, tree_map(_reduced_like, grads, params)
+        with span("train.forward_backward"):
+            tracked = tree_map(lambda p: p.detach().requires_grad_(p.is_floating_point()), params)
+            with torch.enable_grad():
+                total, metrics = loss_fn(tracked, batch)
+                total.backward()
+            grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, tracked)
+            return total.detach(), metrics, tree_map(_reduced_like, grads, params)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
@@ -134,8 +136,9 @@ def make_train_step(model, cfg: ArchConfig, optimizer: AdamW, accum_steps: int =
                 loss = loss + mb_loss / accum_steps
                 del mb_grads
 
-        updates, opt_state, opt_metrics = optimizer.update(grads, state["opt"], params)
-        new_params = apply_updates(params, updates)
+        with span("train.optimizer"):
+            updates, opt_state, opt_metrics = optimizer.update(grads, state["opt"], params)
+            new_params = apply_updates(params, updates)
         new_state = {"params": new_params, "opt": opt_state, "step": state["step"] + 1}
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return new_state, metrics

@@ -58,6 +58,7 @@ import torch
 from repro_torch.core.sched import StreamClass
 from repro_torch.core.store import WriteMode
 from repro_torch.kernels import ops, ref
+from repro_torch.runtime.trace import span
 
 
 @dataclasses.dataclass
@@ -534,20 +535,21 @@ class TieredKVCache:
         tokens, synchronous, so the host tier is complete on return."""
         if not self._pending_k:
             return
-        ks = torch.cat(self._pending_k, dim=2)
-        vs = torch.cat(self._pending_v, dim=2)
-        self._pending_k, self._pending_v = [], []
-        n = ks.shape[2]
-        start = self._flushed
-        if start + n != self.length:
-            raise RuntimeError("pending run out of sync with the cache length")
-        self.cold_k[:, :, start : start + n].copy_(ks)
-        self.cold_v[:, :, start : start + n].copy_(vs)
-        self._flushed = self.length
-        self.stats.d2h_flushes += 1
-        self.stats.bytes_written_through += 2 * ks.numel() * ks.element_size()
-        if self._store is not None:
-            self._persist_pages()
+        with span("kv.flush"):
+            ks = torch.cat(self._pending_k, dim=2)
+            vs = torch.cat(self._pending_v, dim=2)
+            self._pending_k, self._pending_v = [], []
+            n = ks.shape[2]
+            start = self._flushed
+            if start + n != self.length:
+                raise RuntimeError("pending run out of sync with the cache length")
+            self.cold_k[:, :, start : start + n].copy_(ks)
+            self.cold_v[:, :, start : start + n].copy_(vs)
+            self._flushed = self.length
+            self.stats.d2h_flushes += 1
+            self.stats.bytes_written_through += 2 * ks.numel() * ks.element_size()
+            if self._store is not None:
+                self._persist_pages()
 
     def _ensure_capacity(self, tokens: int) -> None:
         if tokens <= self._cap:

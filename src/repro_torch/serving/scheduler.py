@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.runtime.trace import span
 from repro_torch.serving.kv_offload import SharedPageRegistry, TieredKVCache
 
 __all__ = ["Session", "SessionKVBatch", "SessionScheduler", "SessionState"]
@@ -111,8 +112,9 @@ class SessionKVBatch:
 
     def append(self, k: torch.Tensor, v: torch.Tensor) -> None:
         """Write the newest token rows (N, KV, D) into each session."""
-        for i, c in enumerate(self.caches):
-            c.append(k[i : i + 1], v[i : i + 1])
+        with span("kv.append"):
+            for i, c in enumerate(self.caches):
+                c.append(k[i : i + 1], v[i : i + 1])
 
     def attend(self, q: torch.Tensor, impl: str | None = None) -> torch.Tensor:
         """Tiered attention for q (N, H, 1, D) over the sessions' own
@@ -122,8 +124,9 @@ class SessionKVBatch:
         ``impl`` overrides the caches' own: ``"kernel"`` goes through
         ``ops.tiered_decode_rows_attention`` (the Hopper kernel on CUDA, its
         plain version on CPU), ``"plain"`` runs the plain version."""
-        for c in self.caches:
-            c.stage_cold()
+        with span("kv.stage"):
+            for c in self.caches:
+                c.stage_cold()
         impl = impl or self.caches[0].impl
         rows = self.caches
         lens = [(c.hot_len, c.cold_len, c.ring_newest) for c in rows]
@@ -217,6 +220,10 @@ class SessionScheduler:
         self.retired = 0
         self.prefill_s = 0.0
         self.decode_s = 0.0
+        # Inside those two: the admissions' cache allocation (pinned host
+        # tiers), and the decode dispatches' waits for their tokens.
+        self.alloc_s = 0.0
+        self.decode_wait_s = 0.0
 
     # ------------------------------------------------------------ lifecycle
 
@@ -242,24 +249,29 @@ class SessionScheduler:
         return [c for c in sess.caches.values() if isinstance(c, TieredKVCache)]
 
     def _prefill(self, sess: Session) -> None:
-        t0 = time.perf_counter()
-        max_len = len(sess.prompt) + sess.max_new_tokens + 1
-        from repro_torch.launch.steps import make_tiered_caches  # local: launch.steps imports serving
+        with span("serve.admit"):
+            t0 = time.perf_counter()
+            max_len = len(sess.prompt) + sess.max_new_tokens + 1
+            from repro_torch.launch.steps import make_tiered_caches  # local: launch.steps imports serving
 
-        sess.caches = make_tiered_caches(
-            self.model, self.cfg, 1, max_len, self.window, self.page, self.dtype, self.device, self.impl,
-            store=self._store, store_prefix=f"{self._prefix}/{sess.sid}", pages=self.pages,
-        )
-        prompt = torch.as_tensor(sess.prompt, dtype=torch.int64, device=self.device)[None, :]
-        logits, sess.caches = self.model.prefill(self.params, prompt, sess.caches)
-        sess.tokens.append(int(torch.argmax(logits[:, -1, :], dim=-1)[0]))
-        sess.ttft_s = time.perf_counter() - sess.submitted_s
-        sess.state = SessionState.ACTIVE
-        sess.last_step = self._step
-        self.prefills += 1
-        self.prefill_s += time.perf_counter() - t0
-        if sess.done:
-            self._retire(sess)
+            t_alloc = time.perf_counter()
+            with span("kv.alloc"):
+                sess.caches = make_tiered_caches(
+                    self.model, self.cfg, 1, max_len, self.window, self.page, self.dtype, self.device, self.impl,
+                    store=self._store, store_prefix=f"{self._prefix}/{sess.sid}", pages=self.pages,
+                )
+            self.alloc_s += time.perf_counter() - t_alloc
+            prompt = torch.as_tensor(sess.prompt, dtype=torch.int64, device=self.device)[None, :]
+            with span("serve.prefill"):
+                logits, sess.caches = self.model.prefill(self.params, prompt, sess.caches)
+            sess.tokens.append(int(torch.argmax(logits[:, -1, :], dim=-1)[0]))
+            sess.ttft_s = time.perf_counter() - sess.submitted_s
+            sess.state = SessionState.ACTIVE
+            sess.last_step = self._step
+            self.prefills += 1
+            self.prefill_s += time.perf_counter() - t0
+            if sess.done:
+                self._retire(sess)
 
     def _evict(self, sess: Session) -> None:
         for c in self._tiered(sess):
@@ -276,16 +288,17 @@ class SessionScheduler:
         self.resumes += 1
 
     def _retire(self, sess: Session) -> None:
-        for c in sess.caches.values():
-            if isinstance(c, TieredKVCache):
-                c.close()
-        sess.caches = None
-        sess.state = SessionState.RETIRED
-        if self._store is not None:
-            # Clear this session's per-prefix LATENCY hint so the I/O
-            # controller's hint table doesn't grow with retired sessions.
-            self._store.hint_stream(f"{self._prefix}/{sess.sid}/", None)
-        self.retired += 1
+        with span("serve.retire"):
+            for c in sess.caches.values():
+                if isinstance(c, TieredKVCache):
+                    c.close()
+            sess.caches = None
+            sess.state = SessionState.RETIRED
+            if self._store is not None:
+                # Clear this session's per-prefix LATENCY hint so the I/O
+                # controller's hint table doesn't grow with retired sessions.
+                self._store.hint_stream(f"{self._prefix}/{sess.sid}/", None)
+            self.retired += 1
 
     # ----------------------------------------------------------------- step
 
@@ -301,13 +314,18 @@ class SessionScheduler:
 
     def _decode(self, batch: list[Session]) -> None:
         t0 = time.perf_counter()
-        tok = torch.tensor([[s.tokens[-1]] for s in batch], dtype=torch.int64, device=self.device)
-        keys = list(batch[0].caches.keys())
-        # Every layer of a session is at the same length before the step.
-        pos = SessionKVBatch.positions_of([s.caches[keys[0]] for s in batch])
-        caches = {k: SessionKVBatch([s.caches[k] for s in batch], pos) for k in keys}
-        logits, _ = self.model.decode_step(self.params, tok, caches)
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).tolist()  # waits for the step's device work
+        with span("serve.decode"):
+            tok = torch.tensor([[s.tokens[-1]] for s in batch], dtype=torch.int64, device=self.device)
+            keys = list(batch[0].caches.keys())
+            # Every layer of a session is at the same length before the step.
+            pos = SessionKVBatch.positions_of([s.caches[keys[0]] for s in batch])
+            caches = {k: SessionKVBatch([s.caches[k] for s in batch], pos) for k in keys}
+            logits, _ = self.model.decode_step(self.params, tok, caches)
+            nxt = torch.argmax(logits[:, -1, :], dim=-1)
+            with span("serve.decode.wait"):
+                t_wait = time.perf_counter()
+                nxt = nxt.tolist()  # waits for the step's device work
+                self.decode_wait_s += time.perf_counter() - t_wait
         for s, t in zip(batch, nxt):
             s.tokens.append(int(t))
             s.last_step = self._step
@@ -367,33 +385,35 @@ class SessionScheduler:
     def step(self) -> dict:
         """One scheduler tick: admit → (resume) → decode one token for the
         assembled batch → retire finished → enforce per-tier budgets."""
-        self._step += 1
-        for _ in range(self.admit_per_step):
-            if not self._queue:
-                break
-            self._prefill(self._queue.popleft())
-        batch = self._assemble()
-        for s in batch:
-            if s.state is SessionState.EVICTED:
-                self._resume(s)
-        if batch:
-            self._decode(batch)
-        still_decoding = set()
-        for s in batch:
-            if s.done:
-                self._retire(s)
-            else:
-                still_decoding.add(s.sid)
-        if self._arbiter is not None:
-            self._arbiter.rebalance()
-        self._enforce_memory(still_decoding)
-        return {
-            "step": self._step,
-            "batch": len(batch),
-            "queued": len(self._queue),
-            "live": len(self._live()),
-            "retired": self.retired,
-        }
+        with span("serve.step"):
+            self._step += 1
+            for _ in range(self.admit_per_step):
+                if not self._queue:
+                    break
+                self._prefill(self._queue.popleft())
+            batch = self._assemble()
+            for s in batch:
+                if s.state is SessionState.EVICTED:
+                    self._resume(s)
+            if batch:
+                self._decode(batch)
+            still_decoding = set()
+            for s in batch:
+                if s.done:
+                    self._retire(s)
+                else:
+                    still_decoding.add(s.sid)
+            if self._arbiter is not None:
+                self._arbiter.rebalance()
+            with span("serve.memory"):
+                self._enforce_memory(still_decoding)
+            return {
+                "step": self._step,
+                "batch": len(batch),
+                "queued": len(self._queue),
+                "live": len(self._live()),
+                "retired": self.retired,
+            }
 
     def run(self, max_steps: int | None = None) -> dict:
         """Drive steps until every submitted session retires (or the step
@@ -424,6 +444,8 @@ class SessionScheduler:
             "decoded_tokens": self.decoded_tokens,
             "prefill_s": self.prefill_s,
             "decode_s": self.decode_s,
+            "alloc_s": self.alloc_s,
+            "decode_wait_s": self.decode_wait_s,
             "decode_tok_per_s": (
                 self.decoded_tokens / self.decode_s if self.decode_s else 0.0
             ),
