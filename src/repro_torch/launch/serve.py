@@ -226,7 +226,8 @@ def main() -> None:
                 print(f"ttft p50 {rep['ttft_p50_s']*1e3:.1f}ms  p99 {rep['ttft_p99_s']*1e3:.1f}ms, "
                       f"cache allocation {rep['alloc_s']:.3f}s over {rep['prefills']} admissions")
                 print(f"tier overflow: {rep['demotions']} demotions, "
-                      f"{rep['evictions']} evictions, {rep['resumes']} resumes")
+                      f"{rep['evictions']} evictions, {rep['resumes']} resumes; "
+                      f"host tier: {rep['dma_copies']} direct copies, {rep['host_waits']} host waits")
                 if "dedup_ratio" in rep:
                     print(f"shared pages: {rep['pages_logical']} logical / "
                           f"{rep['pages_stored']} stored (dedup {rep['dedup_ratio']:.2f}x)")

@@ -360,8 +360,8 @@ def tiered_serve_loop(
 
 def tiered_cache_stats(caches: dict) -> dict:
     """Aggregate ``TieredKVStats`` across the tiered layers of a cache dict
-    (hot fraction, staged H2D bytes, write-through flushes, pages and bytes
-    persisted into the store)."""
+    (hot fraction, staged H2D bytes, write-through flushes, direct copies and
+    host waits, pages and bytes persisted into the store)."""
     tiered = [c for c in caches.values() if isinstance(c, TieredKVCache)]
     if not tiered:
         return {"layers": 0}
@@ -375,6 +375,8 @@ def tiered_cache_stats(caches: dict) -> dict:
         "pages_staged": sum(c.stats.pages_staged for c in tiered),
         "bytes_written_through": sum(c.stats.bytes_written_through for c in tiered),
         "d2h_flushes": sum(c.stats.d2h_flushes for c in tiered),
+        "dma_copies": sum(c.stats.dma_copies for c in tiered),
+        "host_waits": sum(c.stats.host_waits for c in tiered),
         "pages_persisted": sum(c.stats.pages_persisted for c in tiered),
         "bytes_persisted": sum(c.stats.bytes_persisted for c in tiered),
         "hot_device_bytes": sum(c.hot_device_bytes() for c in tiered),

@@ -34,10 +34,17 @@ Semantics (as in the JAX package):
   cache (pages, tail and manifest into the store, every tier freed) and
   ``resume_from_store()`` brings it back bit-identical.
 
-Copies: the device-to-host flush and the host-to-device staging are
-synchronous copies on the current stream, so the host tier is complete
-before it is read and a staged page is on the device before ``attend``
-launches.  Overlapping them on a side stream is later work.
+Copies: on the card, the device-to-host flush and the host-to-device
+staging move the pinned host tier by direct DMA, one contiguous
+``(batch row, kv head)`` run at a time (``copy_runs``), issued on the
+current stream without a host wait.  Stream order reads a staged page after
+the write-through that filled it, launches ``attend`` after the upload,
+and lets the caching allocator reuse a flushed block only after its copy.
+The host tier is complete when the host reads it: an event recorded after
+each batch of copies is waited on by every host access of ``cold_k`` /
+``cold_v`` (store blobs, restores, ``host_views``, the ring rebuild).  On
+the CPU the same runs are plain memory copies, done on return.
+Overlapping them with compute on a side stream is later work.
 
 The host tier keeps the JAX package's byte layout: ``(B, KV, max_len, D)``
 in the cache dtype, pages ``(B, KV, page, D)`` contiguous when cut out,
@@ -75,6 +82,8 @@ class TieredKVStats:
     evictions: int = 0  # full evict-to-store cycles (idle session parked)
     resumes: int = 0  # full resume-from-store cycles
     demotions: int = 0  # staging-buffer drops under arbiter pressure
+    dma_copies: int = 0  # direct (batch row, kv head) runs to or from the pinned host tier
+    host_waits: int = 0  # host accesses of the host tier that waited for its copies
 
     def hot_fraction(self) -> float:
         """The paper's f = hot / (hot + cold) over all attends so far."""
@@ -90,6 +99,18 @@ def _tensor_bytes(t: torch.Tensor) -> bytes:
 def _from_bytes(blob, dtype, shape) -> torch.Tensor:
     """A host tensor over a writable copy of ``blob``, read as ``dtype``."""
     return torch.frombuffer(bytearray(blob), dtype=dtype).reshape(shape)
+
+
+def copy_runs(dst: torch.Tensor, src: torch.Tensor) -> int:
+    """Copy ``src`` into ``dst``, both (B, KV, n, D), one (batch row, kv
+    head) run at a time, without waiting.  Each run is contiguous on both
+    sides where one side is a token range of the host tier and the other a
+    range of the staging buffer or a contiguous block, so a run between the
+    device and pinned memory is one DMA.  Returns the runs copied."""
+    for dst_b, src_b in zip(dst.unbind(0), src.unbind(0)):
+        for d, s in zip(dst_b.unbind(0), src_b.unbind(0)):
+            d.copy_(s, non_blocking=True)
+    return dst.shape[0] * dst.shape[1]
 
 
 class SharedPageRegistry:
@@ -178,8 +199,9 @@ class TieredKVCache:
     Shapes: k, v tokens are (B, KV, D). Hot ring: (B, KV, W, D) on
     ``device``. Cold tier: a host tensor (B, KV, max_len, D) in the cache
     dtype (pinned when ``device`` is CUDA), staged to the device in
-    immutable ``page``-token pages.  ``store`` / ``pages`` add the durable
-    third level (see the module note).
+    immutable ``page``-token pages; reading ``cold_k`` / ``cold_v`` first
+    waits for the copies in flight to or from it.  ``store`` / ``pages``
+    add the durable third level (see the module note).
     """
 
     def __init__(
@@ -215,6 +237,10 @@ class TieredKVCache:
         # Device staging buffer: paged capacity, a _block_k multiple (the
         # JAX kernel's streaming block), grown by doubling.
         self._block_k = page if page % 8 == 0 else 8 * (-(-page // 8))
+        # On the card, an event re-recorded after each batch of copies to or
+        # from the pinned host tier; host readers wait on it.
+        self._host_event = torch.cuda.Event() if self.device.type == "cuda" else None
+        self._host_pending = False  # copies issued that the host has not waited for
         self._alloc_tiers()
         self._pending_k: list[torch.Tensor] = []  # (B, KV, n, D) blocks awaiting
         self._pending_v: list[torch.Tensor] = []  # batched host write-through
@@ -245,8 +271,8 @@ class TieredKVCache:
         self.hot_k = torch.zeros((b, kv, self.window, d), dtype=self.dtype, device=self.device)
         self.hot_v = torch.zeros_like(self.hot_k)
         pin = self.device.type == "cuda"
-        self.cold_k = torch.zeros((b, kv, self.max_len, d), dtype=self.dtype, pin_memory=pin)
-        self.cold_v = torch.zeros((b, kv, self.max_len, d), dtype=self.dtype, pin_memory=pin)
+        self._cold_k = torch.zeros((b, kv, self.max_len, d), dtype=self.dtype, pin_memory=pin)
+        self._cold_v = torch.zeros((b, kv, self.max_len, d), dtype=self.dtype, pin_memory=pin)
         self._cap = self._block_k
         self._cold_k_dev = self._zeros_dev(self._cap)
         self._cold_v_dev = self._zeros_dev(self._cap)
@@ -254,6 +280,35 @@ class TieredKVCache:
 
     def _zeros_dev(self, tokens: int) -> torch.Tensor:
         return torch.zeros((self.batch, self.kv, tokens, self.dim), dtype=self.dtype, device=self.device)
+
+    @property
+    def cold_k(self) -> torch.Tensor | None:
+        """The host tier's k, (B, KV, max_len, D), complete for the host."""
+        self._await_host()
+        return self._cold_k
+
+    @property
+    def cold_v(self) -> torch.Tensor | None:
+        self._await_host()
+        return self._cold_v
+
+    def _await_host(self) -> None:
+        """Wait for the direct copies in flight to or from the host tier."""
+        if self._host_pending:
+            self._host_event.synchronize()
+            self._host_pending = False
+            self.stats.host_waits += 1
+
+    def _copy_host(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        """One copy between the device and the host tier, in direct runs.
+        On the card each run is one DMA to or from the pinned tier, and the
+        host waits later, where it reads."""
+        runs = copy_runs(dst, src)
+        if self._host_event is None:  # on the CPU the copies are done on return
+            return
+        self.stats.dma_copies += runs
+        self._host_event.record(torch.cuda.current_stream(self.device))  # the stream the copies ran on
+        self._host_pending = True
 
     def attach_arbiter(self, arbiter, min_bytes: int = 0, weight: float = 1.0, name: str = "kv_staging"):
         """Register the host KV history as pool ``name`` (latency class) of an
@@ -265,7 +320,7 @@ class TieredKVCache:
         length; demand is the full ``max_len`` history.  :meth:`close`
         deregisters the pool, so a retired session returns its bytes.
         """
-        per_token = 2 * self.batch * self.kv * self.dim * self.cold_k.element_size()
+        per_token = 2 * self.batch * self.kv * self.dim * self.dtype.itemsize
         pool = arbiter.register(
             name,
             cls="latency",
@@ -369,7 +424,7 @@ class TieredKVCache:
         default rebuilds the hot ring.  Returns the restored length."""
         if self._store is None:
             raise RuntimeError("no store attached to restore from")
-        if self.cold_k is None:
+        if self._cold_k is None:
             self._alloc_tiers()
         n = self._restore_pages()
         self._pending_k, self._pending_v = [], []
@@ -390,7 +445,7 @@ class TieredKVCache:
         Returns the parked length in tokens."""
         if self._store is None:
             raise RuntimeError("no store attached to evict into")
-        if self.cold_k is None:
+        if self._cold_k is None:
             return self.length  # already parked
 
         self.flush_host()  # drains pending + persists completed pages
@@ -412,7 +467,7 @@ class TieredKVCache:
         if self._store is None:
             raise RuntimeError("no store attached to resume from")
         expect = self.length
-        if self.cold_k is None:
+        if self._cold_k is None:
             self._alloc_tiers()
         n = self._restore_pages()
         tail_n = int(self._read_manifest().get("tail", 0))
@@ -471,7 +526,8 @@ class TieredKVCache:
 
     def _free_tiers(self) -> None:
         self.hot_k = self.hot_v = None
-        self.cold_k = self.cold_v = None
+        self._cold_k = self._cold_v = None  # the host allocator frees pinned blocks after their copies
+        self._host_pending = False
         self._cold_k_dev = self._cold_v_dev = None
         self._pending_k, self._pending_v = [], []
         self._cap = 0
@@ -486,7 +542,7 @@ class TieredKVCache:
     def append_block(self, k: torch.Tensor, v: torch.Tensor) -> None:
         """Write S tokens (B, KV, S, D) — the prefill bulk path."""
         s = k.shape[2]
-        if self.cold_k is None:
+        if self._cold_k is None:
             raise RuntimeError("cache is evicted/closed; resume before appending")
         if self.length + s > self.max_len:
             raise ValueError("cache full")
@@ -532,7 +588,8 @@ class TieredKVCache:
 
     def flush_host(self) -> None:
         """Batched write-through: one device-to-host copy for all pending
-        tokens, synchronous, so the host tier is complete on return."""
+        tokens, issued without a wait; the host tier is complete for every
+        host access of ``cold_k`` / ``cold_v``, which waits for it."""
         if not self._pending_k:
             return
         with span("kv.flush"):
@@ -543,8 +600,8 @@ class TieredKVCache:
             start = self._flushed
             if start + n != self.length:
                 raise RuntimeError("pending run out of sync with the cache length")
-            self.cold_k[:, :, start : start + n].copy_(ks)
-            self.cold_v[:, :, start : start + n].copy_(vs)
+            self._copy_host(self._cold_k[:, :, start : start + n], ks)
+            self._copy_host(self._cold_v[:, :, start : start + n], vs)
             self._flushed = self.length
             self.stats.d2h_flushes += 1
             self.stats.bytes_written_through += 2 * ks.numel() * ks.element_size()
@@ -573,10 +630,10 @@ class TieredKVCache:
         self.flush_host()  # pages to stage are complete, so flushable now
         self._ensure_capacity(need * self.page)
         lo, hi = self._staged_pages * self.page, need * self.page
-        self._cold_k_dev[:, :, lo:hi].copy_(self.cold_k[:, :, lo:hi])  # the H2D copies
-        self._cold_v_dev[:, :, lo:hi].copy_(self.cold_v[:, :, lo:hi])
+        self._copy_host(self._cold_k_dev[:, :, lo:hi], self._cold_k[:, :, lo:hi])  # the H2D copies
+        self._copy_host(self._cold_v_dev[:, :, lo:hi], self._cold_v[:, :, lo:hi])
         self.stats.pages_staged += need - self._staged_pages
-        self.stats.bytes_staged += 2 * self.batch * self.kv * (hi - lo) * self.dim * self.cold_k.element_size()
+        self.stats.bytes_staged += 2 * self.batch * self.kv * (hi - lo) * self.dim * self.dtype.itemsize
         self._staged_pages = need
 
     # ------------------------------------------------------------- attend
@@ -593,7 +650,7 @@ class TieredKVCache:
         """
         if self.length == 0:
             raise ValueError("attend on an empty cache")
-        if self.cold_k is None:
+        if self._cold_k is None:
             raise RuntimeError("cache is evicted/closed; resume before attending")
         impl = impl or self.impl
         self.stage_cold()
@@ -635,6 +692,6 @@ class TieredKVCache:
         return self.hot_device_bytes() + self.staged_device_bytes()
 
     def host_bytes(self) -> int:
-        if self.cold_k is None:  # evicted/closed: the host tier is freed
+        if self._cold_k is None:  # evicted/closed: the host tier is freed
             return 0
-        return 2 * self.batch * self.kv * self.max_len * self.dim * self.cold_k.element_size()
+        return 2 * self.batch * self.kv * self.max_len * self.dim * self.dtype.itemsize

@@ -52,6 +52,9 @@ from repro_torch.kernels import ops, ref
 from repro_torch.runtime.trace import span
 from repro_torch.serving.kv_offload import SharedPageRegistry, TieredKVCache
 
+# Cache counters the report sums over every session, retired ones included.
+KV_COUNTS = ("dma_copies", "host_waits")
+
 __all__ = ["Session", "SessionKVBatch", "SessionScheduler", "SessionState"]
 
 
@@ -224,6 +227,7 @@ class SessionScheduler:
         # tiers), and the decode dispatches' waits for their tokens.
         self.alloc_s = 0.0
         self.decode_wait_s = 0.0
+        self._kv_retired = dict.fromkeys(KV_COUNTS, 0)
 
     # ------------------------------------------------------------ lifecycle
 
@@ -289,9 +293,10 @@ class SessionScheduler:
 
     def _retire(self, sess: Session) -> None:
         with span("serve.retire"):
-            for c in sess.caches.values():
-                if isinstance(c, TieredKVCache):
-                    c.close()
+            for c in self._tiered(sess):
+                for name in KV_COUNTS:
+                    self._kv_retired[name] += getattr(c.stats, name)
+                c.close()
             sess.caches = None
             sess.state = SessionState.RETIRED
             if self._store is not None:
@@ -455,6 +460,10 @@ class SessionScheduler:
             "resumes": self.resumes,
             "demotions": self.demotions,
         }
+        for name in KV_COUNTS:
+            out[name] = self._kv_retired[name] + sum(
+                getattr(c.stats, name) for s in self._sessions.values() if s.caches is not None
+                for c in self._tiered(s))
         if self.pages is not None:
             out["pages_logical"] = self.pages.pages_logical
             out["pages_stored"] = self.pages.pages_stored

@@ -333,6 +333,68 @@ def test_cuda_tiered_cache_evict_resume_round_trip(cuda_device, dtype, tmp_path)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_store", [False, True], ids=["no_store", "store"])
+def test_cuda_tiered_cache_copies_host_tier_directly(cuda_device, tmp_path, with_store):
+    """A bf16 cache on the card against the same cache on the CPU: a
+    prefill-sized block, then decode appends across two page boundaries.
+    The flushes and stages copy the pinned host tier by direct DMA (no
+    pageable memcpy in the trace) without a host wait where no store reads
+    it; the host tier, the staged pages, the store's page blobs and the
+    tiered kernel's output are bit-identical to the CPU cache's."""
+    from repro_torch.core import TwoLevelStore
+    from repro_torch.serving import TieredKVCache
+
+    dt = torch.bfloat16
+    b, kv, d, page = 2, 8, 128, 32
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda_device).to(dt)
+    prompt = (rnd(b, kv, 200, d), rnd(b, kv, 200, d))
+    tokens = [(rnd(b, kv, d), rnd(b, kv, d)) for _ in range(70)]  # pages end at 224 and 256
+    q = rnd(b, 8 * kv, 1, d)
+    with TwoLevelStore(str(tmp_path / "pfs"), mem_capacity_bytes=64 * 2**20) as store:
+        kw = dict(window=64, max_len=512, dtype=dt, page=page, store=store if with_store else None)
+        c = TieredKVCache(b, kv, d, device=cuda_device, name="card", **kw)
+        on_cpu = TieredKVCache(b, kv, d, device="cpu", name="cpu", **kw)
+        assert c._host_event is not None and on_cpu._host_event is None
+        on_cpu.append_block(*(x.cpu() for x in prompt))
+        on_cpu.stage_cold()
+        for k, v in tokens:
+            on_cpu.append(k.cpu(), v.cpu())
+            on_cpu.stage_cold()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            c.append_block(*prompt)
+            c.stage_cold()
+            for k, v in tokens:
+                c.append(k, v)
+                c.stage_cold()
+            torch.cuda.synchronize()
+        copies = [e.name() for e in prof.profiler.kineto_results.events() if e.name().startswith("Memcpy")]
+        assert any("Pinned" in n for n in copies), copies
+        assert not [n for n in copies if "Pageable" in n]
+        runs = 2 * b * kv
+        assert c.stats.dma_copies > 0 and c.stats.dma_copies % runs == 0
+        if with_store:
+            assert c.stats.host_waits > 0
+            for p in range(270 // page):
+                assert store.get(f"serving/kv/card/page_{p:06d}") == store.get(f"serving/kv/cpu/page_{p:06d}")
+        else:
+            assert c.stats.host_waits == 0
+        got = c.attend(q)
+        want = ops.tiered_decode_attention(q, on_cpu.hot_k.to(cuda_device), on_cpu.hot_v.to(cuda_device),
+                                           on_cpu._cold_k_dev.to(cuda_device), on_cpu._cold_v_dev.to(cuda_device),
+                                           on_cpu.hot_len, on_cpu.cold_len, on_cpu.ring_newest)
+        assert torch.equal(got, want)
+        for name in ("hot_k", "hot_v", "_cold_k_dev", "_cold_v_dev"):
+            assert torch.equal(getattr(c, name).cpu(), getattr(on_cpu, name)), name
+        for x, y in zip(c.host_views(), on_cpu.host_views()):
+            assert x.shape == (b, kv, 270, d) and torch.equal(x, y)
+        c.close()
+        on_cpu.close()
+
+
+@pytest.mark.cuda
 def test_cuda_tiered_serve_matches_plain(cuda_device):
     """Reduced qwen3 (D=16, 2 query heads per kv head) in fp32 on the card:
     greedy tokens through both kernels equal tokens through the plain

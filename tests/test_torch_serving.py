@@ -236,6 +236,116 @@ class TestPagedStaging:
             assert page(tv.view(torch.int16).numpy(), p) == page(np.asarray(jv).view(np.int16), p)
 
 
+class FakeEvent:
+    """``torch.cuda.Event`` on the CPU: the records and waits of a card's
+    cache, counted."""
+
+    records = waits = 0
+
+    def record(self, stream=None):
+        FakeEvent.records += 1
+
+    def synchronize(self):
+        FakeEvent.waits += 1
+
+
+def with_fake_event(c, monkeypatch):
+    """Give a CPU cache the event a cache on the card records after its
+    host-tier copies, so its host reads wait as on the card."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    FakeEvent.records = FakeEvent.waits = 0
+    c._host_event = FakeEvent()
+    return c
+
+
+class TestHostTierCopies:
+    @pytest.mark.parametrize("direction", ["flush", "stage"])
+    @pytest.mark.parametrize("lo, hi", [(16, 48), (5, 39)], ids=["aligned", "unaligned"])
+    @pytest.mark.parametrize("kv", [1, 8])
+    @pytest.mark.parametrize("b", [1, 4])
+    def test_runs_copy_the_bytes_of_a_slice_copy(self, b, kv, lo, hi, direction):
+        """A token range copied run by run, (batch row, kv head) at a time,
+        gives the bytes of one slice copy of the range: into the host tier
+        from a contiguous block, or out of it into the staging buffer."""
+        from repro_torch.serving.kv_offload import copy_runs
+
+        g = torch.Generator().manual_seed(b * 100 + kv * 10 + lo)
+        rnd = lambda *s: torch.randn(s, generator=g).to(torch.bfloat16)
+        host, staging, block = rnd(b, kv, 64, 16), rnd(b, kv, 64, 16), rnd(b, kv, hi - lo, 16)
+        if direction == "flush":
+            want, got = host.clone(), host.clone()
+            want[:, :, lo:hi].copy_(block)
+            runs = copy_runs(got[:, :, lo:hi], block)
+        else:
+            want, got = staging.clone(), staging.clone()
+            want[:, :, lo:hi].copy_(host[:, :, lo:hi])
+            runs = copy_runs(got[:, :, lo:hi], host[:, :, lo:hi])
+        assert runs == b * kv
+        assert got.view(torch.int16).numpy().tobytes() == want.view(torch.int16).numpy().tobytes()
+        assert all(t[i, h, lo:hi].is_contiguous() for t in (host, staging) for i in range(b) for h in range(kv))
+
+    def test_cpu_cache_counts_no_dma(self, monkeypatch):
+        """A cache on the CPU copies its host tier by the same runs as on the
+        card, but none is a DMA and nothing waits: both counters stay 0."""
+        from repro_torch.serving import kv_offload
+
+        runs = []
+        copy_runs = kv_offload.copy_runs
+        monkeypatch.setattr(kv_offload, "copy_runs", lambda d, s: runs.append(copy_runs(d, s)) or runs[-1])
+        rng = np.random.default_rng(14)
+        c = cache(page=4)
+        for _ in range(3 * W):
+            c.append(*rand_token(rng))
+        c.attend(rand_q(rng))
+        c.host_views()
+        assert c._host_event is None and runs and all(r == B * KV for r in runs)
+        assert c.stats.dma_copies == c.stats.host_waits == 0
+
+    @pytest.mark.parametrize("with_store", [False, True], ids=["no_store", "store"])
+    def test_direct_path_waits_only_where_the_host_reads(self, monkeypatch, tmp_path, with_store):
+        """A cache that records the card's event after its host-tier copies
+        against one that does not, same appends: the same attention, host
+        tier and store blobs.  Flush and stage never wait; the host waits
+        where it reads the tier (store blobs, ``host_views``, the ring
+        rebuild), once per batch of copies."""
+        from repro_torch.core.store import TwoLevelStore
+
+        rng = np.random.default_rng(15)
+        with TwoLevelStore(str(tmp_path / "pfs"), mem_capacity_bytes=4 << 20) as store:
+            kw = dict(dtype=torch.bfloat16, page=4)
+            c = with_fake_event(cache(store=store, name="d", **kw) if with_store else cache(**kw), monkeypatch)
+            plain = cache(store=store, name="p", **kw) if with_store else cache(**kw)
+            ks, vs = (torch.from_numpy(rng.normal(size=(B, KV, 13, D)).astype(np.float32)) for _ in range(2))
+            for x in (c, plain):
+                x.append_block(ks, vs)
+            q = rand_q(rng)
+            for _ in range(2 * W + 1):
+                k, v = rand_token(rng)
+                for x in (c, plain):
+                    x.append(k, v)
+                assert torch.equal(c.attend(q), plain.attend(q))
+            runs = 2 * B * KV  # k and v, one run a (batch row, kv head)
+            assert c.stats.dma_copies > runs * c.stats.d2h_flushes and c.stats.dma_copies % runs == 0
+            assert FakeEvent.records == c.stats.dma_copies // (B * KV)  # one record a k or v copy
+            assert plain.stats.dma_copies == 0
+            if with_store:
+                assert 0 < c.stats.host_waits == FakeEvent.waits <= c.stats.d2h_flushes
+                for p in range(c.length // 4):
+                    assert store.get(f"serving/kv/d/page_{p:06d}") == store.get(f"serving/kv/p/page_{p:06d}")
+            else:
+                assert c.stats.host_waits == FakeEvent.waits == 0
+            before = c.stats.host_waits
+            for got, want in zip(c.host_views(), plain.host_views()):
+                assert torch.equal(got, want)
+            assert c.stats.host_waits == FakeEvent.waits == before + 1
+            c.rebuild_hot_from_cold()
+            assert c.stats.host_waits == before + 1  # nothing copied since the last wait
+            assert torch.equal(c.attend(q), plain.attend(q))
+            assert c.stats.host_waits == before + 1  # the re-stage issued copies, none waited for
+            c.close()
+            plain.close()
+
+
 # ------------------------------------------------------------------- the slice
 
 

@@ -115,6 +115,42 @@ class TestLifecycle:
         serial = decode_all(make_sched(lm, max_batch=1, admit_per_step=1), ps)
         assert list(batched.values()) == list(serial.values())
 
+    def test_report_sums_host_tier_copies_over_every_session(self, lm, monkeypatch):
+        """``dma_copies`` and ``host_waits`` in the report count the caches of
+        retired sessions too.  On the CPU both are 0; with the first two
+        sessions' caches given the event a card's cache records after its
+        copies, every run they issue is counted, the tokens are unchanged and
+        no host read waits (no store)."""
+        _, cfg, _, _ = lm
+        ps = prompts(cfg, 3)
+        sched = make_sched(lm, max_batch=2)
+        want = decode_all(sched, ps, new_tokens=3 * NEW)
+        rep = sched.report()
+        assert rep["dma_copies"] == rep["host_waits"] == 0
+
+        class Event:  # torch.cuda.Event on the CPU; no host read waits here
+            def record(self, stream=None):
+                pass
+
+        monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+        sched = make_sched(lm, max_batch=2)
+        sids = [sched.submit(p, 3 * NEW) for p in ps]
+        sched.step()  # admits the first two
+        counted = [c for s in sched._live() for c in sched._tiered(s)]
+        assert len(counted) == 2 * cfg.n_layers
+        for c in counted:
+            c._host_event = Event()
+        while not any(c.stats.dma_copies for c in counted):
+            sched.step()
+        live = sched.report()
+        assert live["retired"] == 0 and live["dma_copies"] == sum(c.stats.dma_copies for c in counted)
+        sched.run(max_steps=200)
+        assert [sched.session_tokens(s) for s in sids] == list(want.values())
+        rep = sched.report()
+        assert rep["retired"] == 3 and rep["dma_copies"] == sum(c.stats.dma_copies for c in counted)
+        assert rep["dma_copies"] > live["dma_copies"] and rep["host_waits"] == 0
+        sched.close()
+
 
 class TestTierOverflow:
     def test_evict_resume_token_identical(self, lm, tmp_path):
@@ -368,6 +404,7 @@ def test_sessions_cli_prints_report(tmp_path, monkeypatch, capsys):
     assert lines[2].startswith("ttft p50 ")
     overflow = lines[3].split()
     assert lines[3].startswith("tier overflow: ") and int(overflow[4]) >= 1  # evictions
+    assert lines[3].endswith("host tier: 0 direct copies, 0 host waits")  # no DMA on the CPU
     logical, stored = int(lines[4].split()[2]), int(lines[4].split()[5])
     assert lines[4].startswith("shared pages: ") and stored < logical
 
