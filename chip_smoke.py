@@ -6,7 +6,7 @@
 Phases, each printing one JSON line (``{"phase": ...}``):
 
 1. device        the card's name, and its name and power limit from nvidia-smi
-2. build         the four CUDA sources built by nvcc for sm_90a from
+2. build         the five CUDA sources built by nvcc for sm_90a from
                  src/repro_torch/csrc, one nvcc per source, all started together
 3. tiered_decode the decode kernel against its plain version at the serving
                  shape (B=4, H=32, KV=8, D=128, W=256, C=1024), at the edge
@@ -50,6 +50,13 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                  (tile_v) and blocks each launch took; then (``mlstm_tiles``)
                  both built tiles timed at D=384, S=2048 for B*H 4, 16, 20
                  and 40 beside the tile the plan picks there
+6b. moe_grouped  Command A+'s expert share at its cell's widths (d = f =
+                 4096, experts 64..71 of 128 held, top 8 of sigmoid scores):
+                 ``nn.layers.route_share``'s rows for a 16-token decode step
+                 (tiles of 16) and a 4096-token prefill chunk (tiles of 128)
+                 through the grouped op, its used rows against the plain twin
+                 in bf16 (and the decode step in fp32); launches, ms, plain
+                 ms and the bound of the held experts' bytes and operations
 7. serve         qwen3-8b at full width and depth, attn_impl="flash", through
                  ``repro_torch.launch.steps.tiered_serve_loop`` (batch 4, prompt
                  1024, 64 new tokens, kv window 256, page 128), then profiled
@@ -109,8 +116,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                  + 1 of 256 experts top 8, MLA latent caches, prompt 1024, 32
                  tokens, no kernel: the reference has none for MLA or MoE),
                  gemma3-1b (all 26 layers, prompt 2048, 64 tokens, kv window
-                 256, page 128 on its 4 global layers, ring pages on the 22
-                 local ones); launches per kernel, MoE assignments dropped /
+                 256, page 128 on its 4 global layers, sliding rings of 512
+                 on the 22 local ones, all 26 decoding through the tiered
+                 kernel); launches per kernel, MoE assignments dropped /
                  routed, peak bytes at init and serving; then profiled
 13c. serve_whisper / serve_internvl2  the encoder-decoder and the VLM at
                  full width and depth, bf16, batch 4, 64 new tokens, through
@@ -641,6 +649,59 @@ def rglru_phase(record: dict) -> None:
             raise AssertionError(f"rglru {name}: not within rtol=atol={TOL[dt_name]} (max abs err {err})")
         record.setdefault("rglru", []).append(row)
         del a, x, got, want
+
+
+# ------------------------------------------------------------- moe grouped
+
+
+def moe_grouped_phase(record: dict) -> None:
+    """The grouped expert product at ``cmda-moe-rag-c16``'s widths.  bf16's
+    error is held to two bf16 steps at the plain output's largest value
+    (2**-6 of it: both sides round the intermediate and the output)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.nn import layers as L
+
+    cfg = dataclasses.replace(get_config("command_a_plus_05_2026"), experts_held=8, experts_lo=64)
+    d, f, k, held = cfg.d_model, cfg.moe.expert_ff, cfg.moe.top_k, 8
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    router = torch.randn((d, cfg.moe.n_experts), generator=gen, device="cuda") * 0.02
+    w32 = [torch.randn((held, a, b), generator=gen, device="cuda") / a ** 0.5 for a, b in ((d, f), (d, f), (f, d))]
+    for name, tokens, dt_name in (("decode", 16, "bfloat16"), ("prefill_chunk", 4096, "bfloat16"),
+                                  ("decode_fp32", 16, "float32")):
+        dt = getattr(torch, dt_name)
+        w = [t.to(dt) for t in w32]
+        x = torch.randn((tokens, d), generator=gen, device="cuda").to(dt)
+        r = L.route_share({"router": router}, x.float(), cfg, L.moe_tile(tokens, cfg))
+        args = (x, *w, r.rows, r.tile_expert, r.gate, k)
+        ops.moe_grouped_ffn.launches = 0
+        got = ops.moe_grouped_ffn(*args)
+        launches = ops.moe_grouped_ffn.launches
+        want = ref.moe_grouped_ref(*args)
+        used = r.rows < tokens * k
+        rows, experts = int(used.sum()), int(r.active)
+        if dt_name == "bfloat16":
+            err = (got[used].float() - want[used].float()).abs().max().item()
+            tol = 2 ** -6 * want[used].float().abs().max().item()
+            ok = err <= tol and bool(torch.isfinite(got[used]).all())
+        else:
+            err, ok = within_tol(got[used], want[used], dt_name)
+            tol = TOL[dt_name]
+        ms = time_ms(lambda: ops.moe_grouped_ffn(*args), iters=20)
+        plain_ms = time_ms(lambda: ref.moe_grouped_ref(*args), iters=3, warmup=1)
+        isz = torch.finfo(dt).bits // 8
+        bound_ms, bound_by = bound(isz * (3 * d * f * experts + 2 * rows * d), 6 * rows * d * f, dt_name)
+        row = dict(case=name, dtype=dt_name, tokens=tokens, tile=L.moe_tile(tokens, cfg), held_rows=rows,
+                   experts_read=experts, launches=launches, max_abs_err=err, tol=tol, ok=ok, ms=ms,
+                   plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        emit("moe_grouped", **row)
+        if not ok or launches != 1 or rows != int(r.held):
+            raise AssertionError(f"moe_grouped {name}: error {err} over {tol}, {launches} launches, "
+                                 f"{rows} rows of {int(r.held)} held")
+        record.setdefault("moe_grouped", []).append(row)
+        del w, x, got, want
 
 
 # ------------------------------------------------------------------- mlstm
@@ -1363,10 +1424,10 @@ def family_serve_phase(record: dict, out_dir: Path | None, phase: str, arch: str
     """One arch of the MoE / MLA / 5:1 local-global families at full width
     (depth ``n_layers``), bf16, attn_impl="flash", batch 4, random weights
     from seed 0, through ``steps.tiered_serve_loop`` with ``window`` (the
-    full-attention layers' KV two-level, the local layers on ring pages)
+    full-attention layers' KV two-level, the local layers on sliding rings)
     or ``steps.dense_serve_loop`` without: prefill and decode rates,
-    launches per kernel (flash once a GQA layer; tiered decode once a
-    full-attention layer a token), the MoE assignments dropped over
+    launches per kernel (flash once a GQA layer; tiered decode once a GQA
+    layer a token), the MoE assignments dropped over
     capacity, peak device bytes at init and serving; then profiled."""
     import torch
 
@@ -1430,7 +1491,9 @@ def family_serve_phase(record: dict, out_dir: Path | None, phase: str, arch: str
         row.update(hot_fraction=st["hot_fraction"], pages_staged=st["pages_staged"],
                    h2d_bytes_per_step=st["bytes_staged"] / tokens)
     emit(phase, **row)
-    want = {"tiered_decode": full * tokens if window else 0, "flash_attention": gqa, "rglru": 0, "mlstm": 0}
+    # Under the tiered backend every GQA layer decodes through the tiered op:
+    # full layers over both tiers, window layers over their sliding rings.
+    want = {"tiered_decode": gqa * tokens if window else 0, "flash_attention": gqa, "rglru": 0, "mlstm": 0}
     if launches != want:
         raise AssertionError(f"{phase}: launch counts {launches} != {want}")
     if paths != {"tensor_core": gqa, "cuda_core": 0}:
@@ -1559,10 +1622,8 @@ def serve_check_families_phase(record: dict) -> None:
         params["cuda"] = tree.tree_map(lambda t: t.to("cuda"), params["cpu"])
         rng = np.random.default_rng(1)
         prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (B, prompt_len)))
-        # The GQA self-attention layers' windows (the encoder-decoder's: its decoder's, all full).
-        windows = [0] * cfg.n_layers if cfg.encdec is not None else \
-            [spec.window for spec in model.prefix if spec.mixer == "gqa"]
-        gqa, full = len(windows), windows.count(0)
+        # The GQA self-attention layers (the encoder-decoder's: its decoder's).
+        gqa = cfg.n_layers if cfg.encdec is not None else sum(spec.mixer == "gqa" for spec in model.prefix)
         tiered = extra is None and cfg.attn_type == "gqa" and cfg.attn_logit_softcap == 0
         shapes = {"frames": (B, cfg.encdec.n_frames, cfg.d_model) if cfg.encdec else None,
                   "patches": (B, cfg.vlm.n_patches, cfg.vlm.patch_dim) if cfg.vlm else None}
@@ -1587,7 +1648,7 @@ def serve_check_families_phase(record: dict) -> None:
             launches, paths = ops.launches(), ops.flash_path_launches()
         rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(logits["cuda"], logits["cpu"])]
         same = [bool(torch.equal(a, b)) for a, b in zip(toks["cuda"], toks["cpu"])]
-        want = {"tiered_decode": full * steps if tiered else 0, "flash_attention": gqa, "rglru": 0, "mlstm": 0}
+        want = {"tiered_decode": gqa * steps if tiered else 0, "flash_attention": gqa, "rglru": 0, "mlstm": 0}
         row = dict(arch=cfg.name, inputs=extra or "text", layers=cfg.n_layers, G=cfg.n_heads // cfg.n_kv_heads,
                    D=cfg.resolved_head_dim, caches="tiered" if tiered else "dense", batch=B, prompt_len=prompt_len,
                    steps=steps, logits_rel_err=rel, tokens_equal=same, launches=launches, flash_paths=paths,
@@ -2469,6 +2530,14 @@ def kernels_line(record: dict) -> dict:
             entry.update(path=main["path"], library_masked_ms=main["library_masked_ms"],
                          tensor_core_launches=sum(record[p]["flash_paths"]["tensor_core"] for p in SERVE_PHASES))
         out.append(entry)
+    # The expert share's product: launches from its own phase (no serve
+    # phase runs an expert share).
+    rows = record["moe_grouped"]
+    out.append(dict(name="moe_grouped", route="cuda", source="src/repro_torch/csrc/moe_grouped.cu",
+                    replaces=None, stands_for="the capacity-padded MoE einsum of src/repro/nn/layers.py (no Pallas kernel)",
+                    launches=sum(r["launches"] for r in rows), max_abs_err=max(r["max_abs_err"] for r in rows),
+                    ms=[r["ms"] for r in rows], plain_ms=[r["plain_ms"] for r in rows],
+                    bound_ms=[r["bound_ms"] for r in rows], bound_by=[r["bound_by"] for r in rows], library_ms=None))
     # The per-row entry of the same source: one launch a layer a session
     # decode step, standing in for the JAX session plane's vmapped oracle.
     rows = record["tiered_decode_rows"]
@@ -2529,6 +2598,7 @@ def main() -> int:
         ("flash", lambda: flash_phase(record)),
         ("rglru", lambda: rglru_phase(record)),
         ("mlstm", lambda: mlstm_phase(record)),
+        ("moe_grouped", lambda: moe_grouped_phase(record)),
         ("serve", lambda: serve_phase(record, out_dir)),
         ("serve_check", lambda: serve_check_phase(record)),
         ("serve_store", lambda: serve_store_phase(record)),

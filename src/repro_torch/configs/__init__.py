@@ -1,8 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-The JAX registry's ten architectures, in its order.  Each module exports
-``config()`` (exact published shape) and ``reduced()`` (tiny same-family
-variant for CPU smoke tests).
+The JAX registry's ten architectures, in its order (``ARCH_IDS``), and the
+architectures only the port runs (``PORT_ARCH_IDS``, configs of
+``configs.port.PortArchConfig``).  Each module exports ``config()`` (exact
+published shape) and ``reduced()`` (tiny same-family variant for CPU smoke
+tests).
 """
 
 from __future__ import annotations
@@ -24,13 +26,18 @@ ARCH_IDS = [
     "recurrentgemma_9b",
 ]
 
-_ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
+PORT_ARCH_IDS = [
+    "command_a_plus_05_2026",
+]
+
+_ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS + PORT_ARCH_IDS}
 
 
 def _module(arch: str):
     arch = _ALIASES.get(arch, arch)
-    if arch not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch!r}; available: {sorted(ARCH_IDS + list(_ALIASES))}")
+    if arch not in ARCH_IDS + PORT_ARCH_IDS:
+        known = ARCH_IDS + PORT_ARCH_IDS + list(_ALIASES)
+        raise KeyError(f"unknown arch {arch!r}; available: {sorted(known)}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 
@@ -53,6 +60,7 @@ def make_model(cfg: ArchConfig):
 __all__ = [
     "ARCH_IDS",
     "ArchConfig",
+    "PORT_ARCH_IDS",
     "SHAPES",
     "ShapeCell",
     "applicable_shapes",

@@ -36,7 +36,7 @@ from repro_torch.kernels import ref
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("tiered_decode", "flash_attention", "rglru", "mlstm")
+SOURCES = ("tiered_decode", "flash_attention", "rglru", "mlstm", "moe_grouped")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -97,6 +97,8 @@ def _bind(lib: ctypes.CDLL, name: str) -> None:
         fns = [(lib.flash_attention_launch, args + [I, P]), (lib.flash_attention_wgmma_launch, args + [P])]
     elif name == "rglru":
         fns = [(lib.rglru_scan_launch, [P, P, P, I, I, I, I, P])]
+    elif name == "moe_grouped":
+        fns = [(lib.moe_grouped_launch, [P] * 9 + [I] * 8 + [P])]
     else:
         fns = [(lib.mlstm_chunkwise_launch, [P] * 12 + [I, I, I, I, I, P])]
     for fn, argtypes in fns:
@@ -231,6 +233,33 @@ def tiered_decode_rows_attention(
     return ref.tiered_rows_attention_ref(q, hot_k, hot_v, cold_k, cold_v, lens)
 
 
+def moe_grouped_ffn(
+    x: torch.Tensor,  # (T, d)
+    w_gate: torch.Tensor,  # (E_held, d, f)
+    w_up: torch.Tensor,
+    w_down: torch.Tensor,  # (E_held, f, d)
+    rows: torch.Tensor,  # (R,) int64 flat assignment of each padded row, T * k on padding
+    tile_expert: torch.Tensor,  # (R / tile,) int32 local expert of each tile
+    gate: torch.Tensor,  # (R,) fp32
+    top_k: int,
+) -> torch.Tensor:
+    """The held experts' gated SwiGLU over each expert's own rows: (R, d),
+    row r of a tile of expert e ``gate[r] * (silu(x Wg_e) * (x Wu_e)) Wd_e``
+    for its token.  No counterpart in the JAX package (its MoE is a
+    capacity-padded einsum over every expert); vLLM's ``fused_moe`` is the
+    design: the rows sorted by expert, each expert's run padded to a tile,
+    a tile-to-expert table read on the device.  Counted in its own
+    ``launches`` (one an op: the gate-up and the down kernels)."""
+    if x.is_cuda:
+        no_backward("moe_grouped_ffn", x, w_gate, w_up, w_down)
+        from repro_torch.kernels.moe_grouped import moe_grouped_ffn_fwd
+
+        out = moe_grouped_ffn_fwd(x, w_gate, w_up, w_down, rows, tile_expert, gate, top_k)
+        moe_grouped_ffn.launches += 1
+        return out
+    return ref.moe_grouped_ref(x, w_gate, w_up, w_down, rows, tile_expert, gate, top_k)
+
+
 def rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + x_t along S of (B, S, W) inputs from a zero
     carry (fold a carry-in into x_0); fp32 carry, output in x's dtype."""
@@ -278,6 +307,7 @@ def reset_launches() -> None:
     for op in KERNEL_OPS.values():
         op.launches = 0
     tiered_decode_rows_attention.launches = 0
+    moe_grouped_ffn.launches = 0
     flash_attention.path_launches = {"tensor_core": 0, "cuda_core": 0}
     mlstm_chunkwise.grid_launches = {}
 

@@ -176,3 +176,32 @@ def mlstm_ref(
     for t in range(s):
         carry, out[:, :, t] = mlstm_step(carry, q[:, :, t], k[:, :, t], v[:, :, t], i_pre[:, :, t], f_log[:, :, t])
     return out, carry
+
+
+def moe_grouped_ref(
+    x: torch.Tensor,  # (T, d) tokens
+    w_gate: torch.Tensor,  # (E_held, d, f)
+    w_up: torch.Tensor,
+    w_down: torch.Tensor,  # (E_held, f, d)
+    rows: torch.Tensor,  # (R,) flat assignment token * k + j of each padded row; T * k on padding
+    tile_expert: torch.Tensor,  # (R / tile,) local expert of each tile; E_held past the last used one
+    gate: torch.Tensor,  # (R,) fp32 gate of each row
+    top_k: int,
+) -> torch.Tensor:
+    """Each padded row's gated expert output (R, d) in x's dtype: for a row
+    of token t in a tile of expert e, ``gate * (silu(x_t Wg_e) * (x_t Wu_e))
+    Wd_e``, with fp32 sums, the product before ``Wd`` rounded to x's dtype
+    (as the kernel stores it); 0 on padding and in unused tiles."""
+    n_assign = x.shape[0] * top_k
+    tile = rows.shape[0] // tile_expert.shape[0]
+    valid = rows < n_assign
+    expert = tile_expert.long().repeat_interleave(tile)
+    out = torch.zeros((rows.shape[0], x.shape[1]), dtype=x.dtype, device=x.device)
+    for e in range(w_gate.shape[0]):
+        pick = valid & (expert == e)
+        if not bool(pick.any()):
+            continue
+        a = x[rows[pick] // top_k].float()
+        h = (torch.nn.functional.silu(a @ w_gate[e].float()) * (a @ w_up[e].float())).to(x.dtype)
+        out[pick] = ((h.float() @ w_down[e].float()) * gate[pick, None]).to(x.dtype)
+    return out

@@ -10,8 +10,9 @@ unless ``--device cpu`` is given.
 Every decoder LM of the registry serves: the MoE archs (grok-1-314b through
 dense caches, as its logit softcap keeps it off the tiered cache;
 deepseek-v3-671b through its MLA latent caches) print the (token, expert)
-assignments their capacity dropped; gemma3-1b's local layers keep their
-ring pages under ``--kv-window`` while its global layers go tiered.
+assignments their capacity dropped; under ``--kv-window`` gemma3-1b's
+global layers go tiered and its local layers decode from sliding rings of
+their window.
 ``--layers N`` serves the first N layers, a depth one card holds:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b --layers 2 \

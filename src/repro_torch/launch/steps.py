@@ -30,7 +30,7 @@ from repro_torch.nn import layers as L
 from repro_torch.nn.module import NamedSharding, axis_rules, constrain, logical_to_pspec, mesh_shape
 from repro_torch.optim.adamw import AdamW, apply_updates
 from repro_torch.runtime.trace import span
-from repro_torch.serving import TieredKVCache
+from repro_torch.serving import SlidingKVRing, TieredKVCache
 from repro_torch.tree import map_with_path, tree_map
 
 PyTree = Any
@@ -253,10 +253,12 @@ def make_tiered_caches(
     store_prefix: str = "serving/kv", pages=None,
 ) -> dict:
     """Caches for the two-level serving backend: every full-attention GQA
-    layer gets a ``TieredKVCache`` (device hot ring + paged host cold tier);
-    windowed, MLA and recurrent layers keep their O(window) ring pages,
-    latent caches and O(1) states (``make_layer_cache``).  ``impl`` is the
-    tiered caches' attend path (``"kernel"`` or ``"plain"``).
+    layer gets a ``TieredKVCache`` (device hot ring + paged host cold tier),
+    every windowed GQA layer a ``SlidingKVRing`` of its window (device
+    only: what leaves it is never read again); MLA and recurrent layers
+    keep their latent caches and O(1) states (``make_layer_cache``).
+    ``impl`` is the tiered caches' and rings' attend path (``"kernel"`` or
+    ``"plain"``).
 
     ``store`` (a :class:`~repro_torch.core.store.TwoLevelStore`) adds the
     third level: completed cold pages persist under
@@ -272,6 +274,8 @@ def make_tiered_caches(
                 dtype=dtype, page=page, device=device, impl=impl,
                 store=store, store_prefix=store_prefix, name=f"prefix_{i}", pages=pages,
             )
+        elif spec.mixer == "gqa":
+            caches[f"prefix_{i}"] = SlidingKVRing(batch, cfg.n_kv_heads, hd, spec.window, dtype, device, impl)
         else:
             caches[f"prefix_{i}"] = make_layer_cache(spec, cfg, batch, max_len, dtype, device)
     return caches

@@ -5,7 +5,10 @@ prediction head (deepseek-v3-671b) and the recurrent ones: the RG-LRU hybrid
 with local attention (recurrentgemma-9b) and xLSTM (xlstm-125m), and the
 VLM (internvl2-1b): precomputed patch embeddings, projected by ``vlm_proj``
 and prepended to the text at train and prefill; decode is text-only.  The
-encoder-decoder (whisper) is ``models.encdec.EncDec``.
+encoder-decoder (whisper) is ``models.encdec.EncDec``.  Only the port has
+Command A+ (``cohere2_moe``): window layers with RoPE beside NoPE global
+ones, Cohere's parallel block, and an expert share in every layer
+(``configs.port.PortArchConfig``).
 
 The stack is always unrolled (``prefix_0 .. prefix_{L-1}``): PyTorch runs
 eagerly and has no ``lax.scan``, and the two-level cache is host state that
@@ -34,6 +37,7 @@ import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.port import setting
 from repro_torch.nn import layers as L
 from repro_torch.nn import recurrent as R
 from repro_torch.nn.module import Scope, constrain
@@ -46,6 +50,7 @@ class LayerSpec:
     mixer: str  # 'gqa' | 'mla' | 'rglru' | 'mlstm' | 'slstm'
     window: int = 0  # sliding window for gqa (0 = full)
     ffn: str = "mlp"  # 'mlp' | 'moe' | 'none'
+    rope: bool = True  # gqa: RoPE on q and k (False: Command A's global NoPE)
 
 
 def layer_specs(cfg: ArchConfig) -> list[LayerSpec]:
@@ -70,7 +75,8 @@ def layer_specs(cfg: ArchConfig) -> list[LayerSpec]:
             if cfg.global_every > 0 and i % cfg.global_every == cfg.global_every - 1:
                 window = 0  # periodic global layer (gemma3 5:1)
             ffn = "moe" if cfg.moe is not None else "mlp"
-            specs.append(LayerSpec("gqa", window=window, ffn=ffn))
+            rope = window > 0 or setting(cfg, "rope_on_global")
+            specs.append(LayerSpec("gqa", window=window, ffn=ffn, rope=rope))
     return specs
 
 
@@ -134,7 +140,8 @@ def init_layer(scope: Scope, spec: LayerSpec, cfg: ArchConfig) -> None:
     if cfg.post_norms:
         L.norm_init(scope, "post_mixer_norm", cfg.d_model, cfg)
     if spec.ffn != "none":
-        L.norm_init(scope, "pre_ffn_norm", cfg.d_model, cfg)
+        if not setting(cfg, "parallel_block"):
+            L.norm_init(scope, "pre_ffn_norm", cfg.d_model, cfg)
         (L.moe_init if spec.ffn == "moe" else L.mlp_init)(scope, "ffn", cfg)
         if cfg.post_norms:
             L.norm_init(scope, "post_ffn_norm", cfg.d_model, cfg)
@@ -179,7 +186,8 @@ def apply_layer(p: Params, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig,
         x = to_stream(x, cfg, mode)
     h = L.norm_apply(p["pre_norm"], x, cfg)
     if spec.mixer == "gqa":
-        mix, new_cache = L.attention_apply(p["mixer"], h, cfg, window=spec.window, cache=cache, mode=mode)
+        mix, new_cache = L.attention_apply(p["mixer"], h, cfg, window=spec.window, cache=cache, mode=mode,
+                                           use_rope=spec.rope)
     elif spec.mixer == "mla":
         mix, new_cache = L.mla_apply(p["mixer"], h, cfg, cache=cache, mode=mode)
     else:
@@ -189,7 +197,8 @@ def apply_layer(p: Params, x: torch.Tensor, spec: LayerSpec, cfg: ArchConfig,
         mix = L.norm_apply(p["post_mixer_norm"], mix, cfg)
     x = x + mix
     if spec.ffn != "none":
-        h2 = L.norm_apply(p["pre_ffn_norm"], x, cfg)
+        # Cohere's parallel block feeds the FFN the attention's normed input.
+        h2 = h if setting(cfg, "parallel_block") else L.norm_apply(p["pre_ffn_norm"], x, cfg)
         if spec.ffn == "moe":
             f, aux = L.moe_apply(p["ffn"], h2, cfg)
         else:

@@ -1,11 +1,12 @@
 """Layer library of the port: norms, projections, RoPE, GQA attention
 (sliding window, qk-norm, dict or two-level KV cache, or cross-attention
-onto precomputed keys), DeepSeek's MLA with its latent cache, MLPs and the
-sort-dispatched MoE — the port of ``repro/nn/layers.py``.  Every apply
+onto precomputed keys), DeepSeek's MLA with its latent cache, MLPs, the
+sort-dispatched MoE and, for the port's own Command A+, an expert share
+over a grouped product — the port of ``repro/nn/layers.py``.  Every apply
 function is differentiable on the plain path; training attends through ``_attend``
 (``attn_impl="xla"``, as the reference trains), since the flash kernel has
-no backward.  MLA and MoE reach no kernel: the reference has no Pallas
-kernel for them.
+no backward.  MLA and the capacity-padded MoE reach no kernel: the
+reference has no Pallas kernel for them.
 
 Conventions (as in the JAX package):
 * compute runs in ``cfg.dtype``; softmax, normalisers and logits in fp32;
@@ -30,8 +31,10 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig, MLAConfig
+from repro_torch.configs.port import setting
 from repro_torch.kernels import ops
 from repro_torch.nn.module import Scope, constrain, current_dp_groups
+from repro_torch.runtime.trace import span
 
 Params = Any
 NEG_INF = -1e30
@@ -500,10 +503,11 @@ def attention_apply(
         k = _head_rms(k, p["k_norm"], cfg.norm_eps)
 
     tiered = _is_tiered(cache)
-    if tiered and (window > 0 or cfg.attn_logit_softcap > 0):
-        # The two-level backend serves full-attention layers (windowed
-        # layers already hold only O(window) keys in their ring page).
-        raise ValueError("tiered KV backend requires window=0 and no logit softcap")
+    if tiered and (cfg.attn_logit_softcap > 0 or (cache.window != window if cache.sliding else window > 0)):
+        # The two-level backend serves full-attention layers; a window
+        # layer holds only its window's keys, in a device ring of that size.
+        raise ValueError("tiered KV backend takes full-attention layers (a sliding ring a window layer of its "
+                         "size) and no logit softcap")
 
     if mode == "decode" and tiered:
         # Two-level serving backend: hot device ring + paged host cold tier.
@@ -762,14 +766,21 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, cache: dict | None = 
 
 
 def moe_init(scope: Scope, name: str, cfg: ArchConfig) -> None:
+    """The router over every expert and the routed experts' weights: all
+    ``n_experts`` of them, or under an expert share (``experts_held``)
+    this device's experts only, drawn at the fan-in of their inputs."""
     mo = cfg.moe
     assert mo is not None
     c = scope.child(name)
     d, e, f = cfg.d_model, mo.n_experts, mo.expert_ff
+    held = setting(cfg, "experts_held")
+    # ``fan_in`` scales by the leading dim, the experts' count: a share
+    # rescales to each matrix's own fan-in.
+    fan = (lambda n: math.sqrt(held / n)) if held else (lambda n: None)
     c.param("router", (d, e), ("embed", "experts"), init="fan_in")
-    c.param("w_gate", (e, d, f), ("experts", "embed", "expert_ff"), init="fan_in")
-    c.param("w_up", (e, d, f), ("experts", "embed", "expert_ff"), init="fan_in")
-    c.param("w_down", (e, f, d), ("experts", "expert_ff", "embed"), init="fan_in")
+    c.param("w_gate", (held or e, d, f), ("experts", "embed", "expert_ff"), init="fan_in", scale=fan(d))
+    c.param("w_up", (held or e, d, f), ("experts", "embed", "expert_ff"), init="fan_in", scale=fan(d))
+    c.param("w_down", (held or e, f, d), ("experts", "expert_ff", "embed"), init="fan_in", scale=fan(f))
     if mo.n_shared:
         sh = c.child("shared")
         sh.param("w_gate", (d, mo.n_shared * f), ("embed", "ff"), init="fan_in")
@@ -785,15 +796,21 @@ def moe_capacity(tokens: int, cfg: ArchConfig) -> int:
 
 
 def reset_moe_counts() -> None:
-    """Zero the (token, expert) assignments routed and dropped by
-    ``moe_apply`` since the last reset."""
-    moe_apply.routed, moe_apply.dropped = 0, 0
+    """Zero the (token, expert) assignments routed, held and dropped by
+    ``moe_apply`` since the last reset, and the experts the grouped
+    product read."""
+    moe_apply.routed, moe_apply.held, moe_apply.dropped, moe_apply.experts_read = 0, 0, 0, 0
 
 
 def moe_counts() -> dict[str, int]:
-    """Assignments routed and dropped (over capacity) since the last reset;
-    reading them waits for the device once."""
-    return {"routed": int(moe_apply.routed), "dropped": int(moe_apply.dropped)}
+    """Since the last reset: assignments routed (every (token, choice)),
+    held (routed to an expert this device holds: all of them without an
+    expert share) and dropped (over capacity; never under a share), and
+    ``experts_read``, the held experts with at least one row summed over
+    the grouped products.  The share path keeps its counts on the device,
+    so a step never waits for them; reading them waits once."""
+    return {"routed": int(moe_apply.routed), "held": int(moe_apply.held), "dropped": int(moe_apply.dropped),
+            "experts_read": int(moe_apply.experts_read)}
 
 
 class MoERoute(NamedTuple):
@@ -934,6 +951,8 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor
     """
     mo = cfg.moe
     assert mo is not None
+    if setting(cfg, "experts_held"):
+        return moe_share_apply(p, x, cfg)
     b, s, d = x.shape
     dt = x.dtype
     t, k, e = b * s, mo.top_k, mo.n_experts
@@ -948,6 +967,7 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor
     r = moe_route(p, xg, cfg)
     cap = r.cap
     moe_apply.routed += t * k
+    moe_apply.held += t * k
     dropped = (~r.keep).sum()
     moe_apply.dropped = moe_apply.dropped + (dropped.full_tensor() if isinstance(dropped, DTensor) else dropped)
 
@@ -970,6 +990,123 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor
         hs = F.silu(xf @ sp["w_gate"].to(dt)) * (xf @ sp["w_up"].to(dt))
         y = y + hs @ sp["w_down"].to(dt)
     return y.reshape(b, s, d), r.aux.float()
+
+
+# ---------------------------------------------------------------------------
+# MoE — an expert share: route over every expert, compute the held ones
+# ---------------------------------------------------------------------------
+
+# Tokens a share's product takes at once: bounds its (rows, width)
+# temporaries at a long prefill (the experts act on each token alone).
+MOE_SHARE_CHUNK = 4096
+
+
+def moe_tile(tokens: int, cfg: ArchConfig) -> int:
+    """Rows a tile of the grouped product: 16 where an expert expects few
+    rows (decode), 128 where it expects a prefill's many."""
+    mo = cfg.moe
+    return 128 if tokens * mo.top_k >= 64 * mo.n_experts else 16
+
+
+class ExpertRows(NamedTuple):
+    """A share's assignments laid out for the grouped product, built on the
+    device with no host read.  The held assignments sort by expert, each
+    expert's run padded to a multiple of ``tile`` rows, so every tile holds
+    one expert's rows; the layout has room for every assignment held.
+
+    ``rows`` (R,): each padded row's flat assignment index token * k + j,
+    or T * k on padding; ``tile_expert`` (R / tile,) int32: each tile's
+    local expert, ``experts_held`` past the last used tile; ``gate`` (R,)
+    fp32: each row's normalised gate, 0 on padding; ``where`` (T, k): each
+    assignment's padded row, R where its expert is not held; ``held`` and
+    ``active``: the held assignments and the held experts with a row."""
+
+    rows: torch.Tensor
+    tile_expert: torch.Tensor
+    gate: torch.Tensor
+    where: torch.Tensor
+    held: torch.Tensor
+    active: torch.Tensor
+
+
+def route_share(p: Params, x: torch.Tensor, cfg: ArchConfig, tile: int) -> ExpertRows:
+    """Route the tokens x (T, d) over all ``n_experts`` with fp32 router
+    logits: sigmoid or softmax scores, the top k, gates normalised over the
+    k (+1e-9); then lay out the assignments to the held experts
+    ``[experts_lo, experts_lo + experts_held)`` (``ExpertRows``).  Nothing
+    is dropped: the layout is sized for every assignment."""
+    mo = cfg.moe
+    t, k, e = x.shape[0], mo.top_k, mo.n_experts
+    held, lo = setting(cfg, "experts_held"), setting(cfg, "experts_lo")
+    dev = x.device
+    logits = x.float() @ p["router"].float()
+    scores = torch.sigmoid(logits) if mo.router_type == "sigmoid" else torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(scores, k, dim=-1)
+    if mo.normalize_gates:
+        gate_vals = gate_vals / (gate_vals.sum(dim=-1, keepdim=True) + 1e-9)
+    local = expert_idx.reshape(-1) - lo
+    local = torch.where((local >= 0) & (local < held), local, held)  # ``held``: not this device's
+    counts = torch.zeros(held + 1, dtype=torch.int64, device=dev).scatter_add_(0, local, torch.ones_like(local))
+    counts = counts[:held]
+    padded = (counts + tile - 1) // tile * tile
+    pad_end = torch.cumsum(padded, 0)
+    n_rows = -(-(t * k + held * (tile - 1)) // tile) * tile  # room for every assignment, each run padded
+    order = torch.argsort(local, stable=True)  # by expert; the not-held bucket last
+    by_expert = local[order]
+    mine = by_expert < held
+    e_of = torch.where(mine, by_expert, 0)
+    first = torch.cumsum(counts, 0) - counts  # each expert's first sorted position
+    dest = (pad_end - padded)[e_of] + torch.arange(t * k, device=dev) - first[e_of]
+    dest = torch.where(mine, dest, n_rows)  # past the end: cut off below
+    rows = torch.full((n_rows + 1,), t * k, dtype=torch.int64, device=dev).index_put_((dest,), order)[:n_rows]
+    gate = torch.zeros(n_rows + 1, dtype=torch.float32, device=dev).index_put_(
+        (dest,), gate_vals.reshape(-1)[order])[:n_rows]
+    where = torch.empty(t * k, dtype=torch.int64, device=dev).index_put_((order,), dest).reshape(t, k)
+    starts = torch.arange(0, n_rows, tile, device=dev)
+    tile_expert = torch.searchsorted(pad_end, starts, right=True).to(torch.int32)
+    return ExpertRows(rows, tile_expert, gate, where, counts.sum(), (counts > 0).sum())
+
+
+def moe_share_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The expert share of one device under expert parallelism: every token
+    routed over all ``n_experts`` (``route_share``), only the assignments
+    to the held experts computed, none dropped, plus the mean of the shared
+    experts (Command A's ``"average"``, the one model on this path), which
+    every device computes alike.  What the other devices' experts would
+    add is left out: this device's part of the layer's output.
+
+    The held experts' product is ``ops.moe_grouped_ffn`` over each
+    expert's own rows (``ExpertRows``: sorted by expert, padded to a tile,
+    a tile-to-expert table on the device); each token then sums its
+    assignments' gated outputs in fp32 in its choices' order.  Tokens go
+    through in chunks of ``MOE_SHARE_CHUNK``.  No load-balance loss (the
+    share serves; it does not train): aux is 0."""
+    mo = cfg.moe
+    b, s, d = x.shape
+    dt = x.dtype
+    xf = x.reshape(b * s, d)
+    outs = []
+    for c0 in range(0, b * s, MOE_SHARE_CHUNK):
+        xc = xf[c0 : c0 + MOE_SHARE_CHUNK]
+        t = xc.shape[0]
+        with span("moe.route"):
+            r = route_share(p, xc, cfg, moe_tile(t, cfg))
+        moe_apply.routed += t * mo.top_k
+        moe_apply.held = moe_apply.held + r.held
+        moe_apply.experts_read = moe_apply.experts_read + r.active
+        with span("moe.experts"):
+            y_rows = ops.moe_grouped_ffn(xc, p["w_gate"].to(dt), p["w_up"].to(dt), p["w_down"].to(dt), r.rows,
+                                         r.tile_expert, r.gate, mo.top_k)
+            y_rows = torch.cat([y_rows, y_rows.new_zeros((1, d))])  # the row of assignments not held
+            y = y_rows[r.where].sum(dim=1, dtype=torch.float32).to(dt)
+        if mo.n_shared:
+            with span("moe.shared"):
+                sp = p["shared"]
+                hs = F.silu(xc @ sp["w_gate"].to(dt)) * (xc @ sp["w_up"].to(dt))
+                y = y + (hs @ sp["w_down"].to(dt)) * (1.0 / mo.n_shared)
+        outs.append(y)
+    y = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return y.reshape(b, s, d), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 reset_moe_counts()

@@ -9,7 +9,7 @@ span is one module attribute read and a shared empty context: there is no
 switch, and nothing to turn on but the profiler itself.
 
 Spans open once per step or layer-step, never once per cache or per row.
-Names start with ``serve.``, ``kv.`` or ``train.``:
+Names start with ``serve.``, ``kv.``, ``moe.`` or ``train.``:
 
     serve.step            SessionScheduler.step
     serve.admit           an admission: caches, prefill, first token
@@ -20,6 +20,12 @@ Names start with ``serve.``, ``kv.`` or ``train.``:
     kv.append             a layer-step's appends into every session
     kv.stage              a layer-step's uploads of new cold pages
     kv.flush              a cache's host write-through, where it copies
+    kv.ring               a window layer-step's appends into the sliding
+                          rings, and its attend over them
+    moe.route             an expert share's routing and row layout
+    moe.experts           the held experts' grouped product and each
+                          token's sum of its assignments
+    moe.shared            the shared experts
     serve.retire          a session's retirement (frees pinned memory)
     serve.memory          the per-tier budget walk
     train.forward_backward  the loss and its gradients

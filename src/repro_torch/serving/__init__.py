@@ -1,7 +1,7 @@
 """Serving layer of the PyTorch port: the two-level KV cache with its
 store-backed third level, and the multi-session scheduler over it."""
 
-from repro_torch.serving.kv_offload import SharedPageRegistry, TieredKVCache, TieredKVStats
+from repro_torch.serving.kv_offload import SharedPageRegistry, SlidingKVRing, TieredKVCache, TieredKVStats
 from repro_torch.serving.scheduler import Session, SessionKVBatch, SessionScheduler, SessionState
 
 __all__ = [
@@ -10,6 +10,7 @@ __all__ = [
     "SessionScheduler",
     "SessionState",
     "SharedPageRegistry",
+    "SlidingKVRing",
     "TieredKVCache",
     "TieredKVStats",
 ]

@@ -194,7 +194,8 @@ class SharedPageRegistry:
 
 
 class TieredKVCache:
-    """Per-layer two-level KV cache for one decoding batch.
+    """Per-layer two-level KV cache for one decoding batch (a full-attention
+    layer's: ``sliding`` is False).
 
     Shapes: k, v tokens are (B, KV, D). Hot ring: (B, KV, W, D) on
     ``device``. Cold tier: a host tensor (B, KV, max_len, D) in the cache
@@ -203,6 +204,8 @@ class TieredKVCache:
     waits for the copies in flight to or from it.  ``store`` / ``pages``
     add the durable third level (see the module note).
     """
+
+    sliding = False
 
     def __init__(
         self,
@@ -695,3 +698,90 @@ class TieredKVCache:
         if self._cold_k is None:  # evicted/closed: the host tier is freed
             return 0
         return 2 * self.batch * self.kv * self.max_len * self.dim * self.dtype.itemsize
+
+
+class SlidingKVRing:
+    """A sliding-window layer's KV for one decoding batch: a device ring of
+    the layer's ``window`` slots and nothing else.  A window layer's query
+    reads only the last ``window`` keys, so no host tier, staging buffer or
+    store stands behind the ring: what leaves it is never read again.
+
+    It has the surface of ``TieredKVCache`` that the layer code and the
+    session plane (``SessionKVBatch``) touch: ``append`` / ``append_block``
+    (the prefill's last ``window`` tokens) write ring slots; ``attend``
+    reads them for a batch whose rows share one length; ``hot_len``,
+    ``cold_len`` (always 0) and ``ring_newest`` are the tiered kernels'
+    lengths, with an empty one-block staging buffer as their cold operand.
+    Query ``p`` sees keys ``(p - window, p]``, the window layers' mask.
+    """
+
+    sliding = True
+    _EMPTY = 8  # the cold operand's capacity: one block, never read
+
+    def __init__(self, batch: int, kv_heads: int, head_dim: int, window: int, dtype=torch.bfloat16,
+                 device="cuda", impl: str = "kernel"):
+        if window <= 0:
+            raise ValueError("need window > 0")
+        if impl not in ("kernel", "plain"):
+            raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+        self.batch, self.kv, self.dim, self.window = batch, kv_heads, head_dim, window
+        self.dtype, self.device, self.impl = dtype, torch.device(device), impl
+        self.hot_k = torch.zeros((batch, kv_heads, window, head_dim), dtype=dtype, device=self.device)
+        self.hot_v = torch.zeros_like(self.hot_k)
+        self._cold_k_dev = torch.zeros((batch, kv_heads, self._EMPTY, head_dim), dtype=dtype, device=self.device)
+        self._cold_v_dev = self._cold_k_dev
+        self.length = 0
+        self.stats = TieredKVStats()
+
+    cold_len = 0
+
+    @property
+    def hot_len(self) -> int:
+        return min(self.length, self.window)
+
+    @property
+    def ring_newest(self) -> int:
+        return (self.length - 1) % self.window
+
+    def stage_cold(self) -> None:
+        """Nothing to stage: the ring is the whole cache."""
+
+    def append(self, k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write one token (B, KV, D) into its slot."""
+        slot = self.length % self.window
+        self.hot_k[:, :, slot] = k.to(self.dtype)
+        self.hot_v[:, :, slot] = v.to(self.dtype)
+        self.length += 1
+        self.stats.appended += 1
+
+    def append_block(self, k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write S tokens (B, KV, S, D): only the last ``window`` land."""
+        s, w = k.shape[2], self.window
+        n = min(s, w)
+        slots = torch.remainder(torch.arange(self.length + s - n, self.length + s, device=self.device), w)
+        self.hot_k[:, :, slots] = k[:, :, s - n:].to(self.dtype)
+        self.hot_v[:, :, slots] = v[:, :, s - n:].to(self.dtype)
+        self.length += s
+        self.stats.appended += s
+
+    def attend(self, q: torch.Tensor, impl: str | None = None) -> torch.Tensor:
+        """Decode attention for q (B, H, 1, D) over the ring: the tiered
+        decode op with no cold part (``"kernel"``), or its plain version
+        (``"plain"``); ``impl`` overrides the ring's own setting."""
+        if self.length == 0:
+            raise ValueError("attend on an empty ring")
+        if self.hot_k is None:
+            raise RuntimeError("the ring is closed")
+        fn = ops.tiered_decode_attention if (impl or self.impl) == "kernel" else ref.tiered_ring_attention_ref
+        with span("kv.ring"):
+            return fn(q.to(self.dtype).contiguous(), self.hot_k, self.hot_v, self._cold_k_dev, self._cold_v_dev,
+                      self.hot_len, 0, self.ring_newest)
+
+    def device_bytes(self) -> int:
+        if self.hot_k is None:
+            return 0
+        return self.batch * self.kv * (2 * self.window + self._EMPTY) * self.dim * self.dtype.itemsize
+
+    def close(self) -> None:
+        """Free the ring.  Idempotent."""
+        self.hot_k = self.hot_v = self._cold_k_dev = self._cold_v_dev = None

@@ -6,9 +6,12 @@ three-level memory hierarchy (device memory → pinned host memory → the
 two-level store): the paper's working-set-exceeds-memory thesis applied to
 inference.
 
-* Each :class:`Session` owns one batch-1 :class:`TieredKVCache` per layer
-  (hot device ring + paged host history + store-backed pages).  The state
-  machine is ``QUEUED → ACTIVE ⇄ EVICTED → RETIRED``: admission prefills the
+* Each :class:`Session` owns one batch-1 :class:`TieredKVCache` per
+  full-attention layer (hot device ring + paged host history + store-backed
+  pages) and one :class:`SlidingKVRing` per sliding-window layer (a device
+  ring of the layer's window and nothing behind it).  A session shorter
+  than the tiered ring gets the full ring over a short host history.  The
+  state machine is ``QUEUED → ACTIVE ⇄ EVICTED → RETIRED``: admission prefills the
   prompt eagerly, then every :meth:`SessionScheduler.step` assembles up to
   ``max_batch`` active sessions into **one** decode dispatch (continuous
   batching: a retiring session's slot is refilled next step).
@@ -16,13 +19,14 @@ inference.
   single-session caches as one batched tiered cache: per-row RoPE positions
   (sessions sit at different lengths), the newest token row appended to
   each session's ring, and one per-row tiered attention over the sessions'
-  rings and staging buffers where they lie.  On the card that is one launch
+  rings and staging buffers where they lie (a sliding layer's rings with
+  no cold part).  On the card that is one launch
   of the hand-written per-row kernel (``ops.tiered_decode_rows_attention``)
   a layer-step, whatever the sessions' staging capacities; the JAX package
   instead stacks the buffers, grouped by capacity, under a vmapped oracle.
-* Memory is governed per tier: the device footprint (rings + staging
-  buffers) and the host footprint (cold histories) are measured every step
-  against one :class:`~repro_torch.core.arbiter.MemoryArbiter` pool per tier
+* Memory is governed per tier: the device footprint (rings, sliding rings
+  included, + staging buffers) and the host footprint (cold histories) are
+  measured every step against one :class:`~repro_torch.core.arbiter.MemoryArbiter` pool per tier
   (or fixed byte budgets).  Over the device budget, least recently decoded
   sessions **demote** (drop their staging buffer; the next attend
   re-stages).  Over the host budget, least recently decoded idle sessions
@@ -50,7 +54,7 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.runtime.trace import span
-from repro_torch.serving.kv_offload import SharedPageRegistry, TieredKVCache
+from repro_torch.serving.kv_offload import SharedPageRegistry, SlidingKVRing, TieredKVCache
 
 # Cache counters the report sums over every session, retired ones included.
 KV_COUNTS = ("dma_copies", "host_waits")
@@ -87,19 +91,22 @@ class Session:
 
 
 class SessionKVBatch:
-    """Per-layer adapter: N batch-1 tiered caches as one batched cache.
+    """Per-layer adapter: N batch-1 tiered caches (or N sliding rings) as
+    one batched cache.
 
     Duck-typed to the ``TieredKVCache`` surface that the tiered decode branch
-    of ``attention_apply`` touches (``row_positions`` / ``append`` /
-    ``attend``), so the layer code does not know how many sessions it
-    serves.
+    of ``attention_apply`` touches (``sliding`` / ``window`` /
+    ``row_positions`` / ``append`` / ``attend``), so the layer code does not
+    know how many sessions it serves.
     """
 
-    def __init__(self, caches: list[TieredKVCache], positions: torch.Tensor):
+    def __init__(self, caches: list[TieredKVCache | SlidingKVRing], positions: torch.Tensor):
         if not caches:
             raise ValueError("empty session batch")
         self.caches = caches
         self._positions = positions  # (N, 1): one tensor for every layer of a decode step
+        self.sliding = caches[0].sliding
+        self.window = caches[0].window
 
     @staticmethod
     def positions_of(caches: list[TieredKVCache]) -> torch.Tensor:
@@ -115,7 +122,7 @@ class SessionKVBatch:
 
     def append(self, k: torch.Tensor, v: torch.Tensor) -> None:
         """Write the newest token rows (N, KV, D) into each session."""
-        with span("kv.append"):
+        with span("kv.ring" if self.sliding else "kv.append"):
             for i, c in enumerate(self.caches):
                 c.append(k[i : i + 1], v[i : i + 1])
 
@@ -126,10 +133,17 @@ class SessionKVBatch:
         (the buffers are read after staging, which may reallocate them).
         ``impl`` overrides the caches' own: ``"kernel"`` goes through
         ``ops.tiered_decode_rows_attention`` (the Hopper kernel on CUDA, its
-        plain version on CPU), ``"plain"`` runs the plain version."""
+        plain version on CPU), ``"plain"`` runs the plain version.  Sliding
+        rings stage nothing: the op reads each ring with no cold part."""
+        if self.sliding:
+            with span("kv.ring"):
+                return self._attend(q, impl)
         with span("kv.stage"):
             for c in self.caches:
                 c.stage_cold()
+        return self._attend(q, impl)
+
+    def _attend(self, q: torch.Tensor, impl: str | None) -> torch.Tensor:
         impl = impl or self.caches[0].impl
         rows = self.caches
         lens = [(c.hot_len, c.cold_len, c.ring_newest) for c in rows]
@@ -180,11 +194,8 @@ class SessionScheduler:
         if model.n_periods:
             raise ValueError("session serving needs an unrolled stack (scan_layers=False)")
         for spec in model.prefix:
-            if spec.mixer != "gqa" or spec.window != 0:
-                raise ValueError(
-                    "session serving requires all layers full-attention GQA "
-                    f"(got mixer={spec.mixer!r} window={spec.window})"
-                )
+            if spec.mixer != "gqa":
+                raise ValueError(f"session serving requires all layers GQA, full or windowed (got mixer={spec.mixer!r})")
         if cfg.attn_logit_softcap > 0:
             raise ValueError("tiered KV backend requires no logit softcap")
         self.model, self.cfg, self.params = model, cfg, params
@@ -255,7 +266,8 @@ class SessionScheduler:
     def _prefill(self, sess: Session) -> None:
         with span("serve.admit"):
             t0 = time.perf_counter()
-            max_len = len(sess.prompt) + sess.max_new_tokens + 1
+            # A session shorter than the ring gets the whole ring over a short history.
+            max_len = max(len(sess.prompt) + sess.max_new_tokens + 1, self.window)
             from repro_torch.launch.steps import make_tiered_caches  # local: launch.steps imports serving
 
             t_alloc = time.perf_counter()
@@ -293,7 +305,7 @@ class SessionScheduler:
 
     def _retire(self, sess: Session) -> None:
         with span("serve.retire"):
-            for c in self._tiered(sess):
+            for c in sess.caches.values():
                 for name in KV_COUNTS:
                     self._kv_retired[name] += getattr(c.stats, name)
                 c.close()
@@ -352,7 +364,7 @@ class SessionScheduler:
         resident = [s for s in self._live() if s.state is SessionState.ACTIVE]
         lru = sorted(resident, key=lambda s: (s.last_step, s.sid))
         hbm_budget, host_budget = self._budgets()
-        device_use = sum(c.device_bytes() for s in resident for c in self._tiered(s))
+        device_use = sum(c.device_bytes() for s in resident for c in s.caches.values())
         host_use = sum(c.host_bytes() for s in resident for c in self._tiered(s))
         if hbm_budget is not None and device_use > hbm_budget:
             for s in lru:
@@ -475,8 +487,7 @@ class SessionScheduler:
         for s in self._sessions.values():
             if s.caches is not None:
                 for c in s.caches.values():
-                    if isinstance(c, TieredKVCache):
-                        c.close()
+                    c.close()
                 s.caches = None
         for pool in (self._hbm_pool, self._host_pool):
             if pool is not None:

@@ -903,3 +903,92 @@ def test_cuda_restore_sharded_onto_card_mesh(card_mesh, tmp_path):
     prompts = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 24))).cuda()
     out = [S.tiered_serve_loop(model, cfg, p, prompts, 8, window=8, page=4)[0] for p in (local, params)]
     assert torch.equal(out[0], out[1])
+
+
+def _share_cfg(d: int, f: int, experts: int, held: int, lo: int, top_k: int):
+    """An expert share's config at a kernel test's widths (its MoE fields only matter)."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import MoEConfig
+
+    base = get_reduced("command_a_plus_05_2026")
+    return dataclasses.replace(base, d_model=d, experts_held=held, experts_lo=lo,
+                               moe=MoEConfig(n_experts=experts, top_k=top_k, expert_ff=f, n_shared=0,
+                                             router_type="sigmoid"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tokens,skew", [(16, False), (700, False), (300, True)], ids=["decode", "prefill", "skewed"])
+def test_cuda_moe_grouped_matches_plain(cuda_device, dtype, tokens, skew):
+    """The grouped expert product against its plain twin: the rows that
+    ``route_share`` lays out for 8 held experts of 32 (tiles of 16 at
+    decode, 128 at a prefill; a skewed router sends most rows to one held
+    expert, several tiles long), at widths the column and depth blocks do
+    not divide (d 192, f 96), in fp32 and bf16; one launch counted."""
+    from repro_torch.kernels import ref
+    from repro_torch.nn import layers as L
+
+    dt = getattr(torch, dtype)
+    cfg = _share_cfg(192, 96, 32, 8, 8, 4)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    x = torch.randn(tokens, 192, generator=g).to(dt)
+    router = torch.randn(192, 32, generator=g) / 14
+    if skew:
+        router[:, 9] += 1.0  # held expert 1 of the share wins most tokens
+    w = [torch.randn(8, *shape, generator=g).div(shape[0] ** 0.5).to(dt) for shape in ((192, 96), (192, 96), (96, 192))]
+    r = L.route_share({"router": router}, x.float(), cfg, L.moe_tile(tokens, cfg))
+    want = ref.moe_grouped_ref(x, *w, r.rows, r.tile_expert, r.gate, 4)
+    dev = lambda t: t.to(cuda_device)
+    before = ops.moe_grouped_ffn.launches
+    got = ops.moe_grouped_ffn(dev(x), *map(dev, w), dev(r.rows), dev(r.tile_expert), dev(r.gate), 4).cpu()
+    assert ops.moe_grouped_ffn.launches - before == 1
+    used = r.rows < tokens * 4
+    assert int(used.sum()) == int(r.held) > 0
+    torch.testing.assert_close(got[used], want[used], **TOL[dtype])
+    assert torch.all(got[(r.rows == tokens * 4) & (r.tile_expert.repeat_interleave(r.rows.shape[0] // r.tile_expert.shape[0]) < 8)] == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_cmda_sessions_match_cpu(cuda_device):
+    """Reduced Command A+ in fp32: sessions at different lengths, one
+    shorter than the tiered ring and two past the sliding window, served
+    through ``SessionScheduler`` on the card (flash prefill, the per-row
+    kernel over tiered caches and sliding rings, the grouped expert
+    product) give the CPU's plain tokens, with one rows launch a layer a
+    decode dispatch and no assignment dropped."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_reduced, make_model
+    from repro_torch.nn import layers as L
+    from repro_torch.nn.module import init_with_axes
+    from repro_torch.serving import SessionScheduler
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = dataclasses.replace(get_reduced("command_a_plus_05_2026"), dtype="float32")
+    params, _ = init_with_axes(make_model(base).init, 0, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, base.vocab, n).astype(np.int32) for n in (5, 23, 41)]
+    tokens = {}
+    for device, impl, attn_impl in ((cuda_device, "kernel", "flash"), (torch.device("cpu"), "plain", "xla")):
+        cfg = dataclasses.replace(base, attn_impl=attn_impl)
+        sched = SessionScheduler(make_model(cfg), cfg, tree_map(lambda t: t.to(device), params), window=8, page=4, max_batch=3, dtype=torch.float32,
+                                 device=device, impl=impl, admit_per_step=3)
+        sids = [sched.submit(q, 9) for q in prompts]
+        ops.reset_launches()
+        L.reset_moe_counts()
+        dispatches = 0
+        while sched._queue or sched._live():
+            dispatches += sched.step()["batch"] > 0
+        if device.type == "cuda":
+            assert ops.tiered_decode_rows_attention.launches == base.n_layers * dispatches
+            assert ops.moe_grouped_ffn.launches == base.n_layers * (dispatches + len(prompts))
+            counts = L.moe_counts()
+            assert counts["dropped"] == 0 and 0 < counts["held"] < counts["routed"]
+        tokens[device.type] = [sched.session_tokens(s) for s in sids]
+        sched.close()
+    assert tokens["cuda"] == tokens["cpu"]

@@ -252,7 +252,7 @@ def test_windowed_ring_cache_long_decode():
 
 def test_tiered_serving_keeps_windowed_and_latent_caches():
     """make_tiered_caches: gemma3's global layers get the two-level cache and
-    its local layers their ring pages; deepseek's MLA layers keep their
+    its local layers sliding rings; deepseek's MLA layers keep their
     latent caches; the tiered loop gives the dense loop's tokens."""
     from repro_torch.serving import TieredKVCache
 
